@@ -10,7 +10,8 @@
    e5-large, the paper's embedder) and its 4096-cluster IVF index, built on
    the card.
 3. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes, each beside the tolerance it is held to.
+   path's shapes and at edge cases, each beside the tolerance it is held to
+   (``topk_merge`` does no arithmetic and is held bit for bit).
 4. The main path: ``Server(mode="hedra", nprobe=32)`` over ``RealBackend``,
    with qwen3-1.7b at full width and depth (28 layers, bf16, seeded random
    weights) and the hybrid retrieval engine (512 device-resident clusters),
@@ -21,9 +22,23 @@
 5. Outputs checked by the repo's own means: device-path retrieval against
    the host path on the real index, and decode (the kernel) against
    prefill (plain attention) on a full-width model cut to 2 layers, in f32.
-6. Times with CUDA events: each kernel, its plain version and (decode only)
-   one PyTorch call computing the same function, at the main path's inputs,
-   beside the least time the card could take for that work.
+7. The sharded search: the whole index packed into a (4096, L, 1024) f32
+   slab on the card (~12.9 GB), split over a gloo group of 4 spawned ranks
+   on the one card (each rank's tile range reaches it by CUDA IPC);
+   ``make_sharded_search`` scans each range and merges the all-gathered
+   lists with ``topk_merge``.  Held against ``reference_search`` over the
+   whole slab and against an exact f64 brute force over the index's rows;
+   every rank must have launched the kernel.
+8. Shard-mode serving: ``build_server(ret_workers=4, index_sharding=True)``
+   over phase 4's engine and a fresh 512-slot hybrid engine in shard mode
+   serves 8 requests while a ``FaultPlan`` crashes one of the 4 workers;
+   every request terminates, each surviving owner's device path (its own
+   slots) agrees with the host path, and ``scatter_gather_search`` over
+   the surviving shards equals its one-plan oracle.
+6. Times with CUDA events (run last, on the inputs phases 4 and 7 gave the
+   kernels): each kernel, its plain version and, where there is one, one
+   PyTorch call computing the same function, beside the least time the
+   card could take for that work.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero without it.
@@ -33,9 +48,12 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import queue
+import socket
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -51,6 +69,13 @@ CACHE_CAPACITY, NPROBE, N_REQUESTS = 512, 32, 8
 # all run their rounds in lock step (one sub-stage per round for all).
 CACHE_UPDATE_INTERVAL, CACHE_TRANSIT, ARRIVAL_GAP_US = 1, 0, 200_000.0
 WORKFLOW_NAMES = ("one-shot", "hyde", "recomp", "multistep", "irg")
+# Sharded-path sizes: a world of 4 ranks on the one card (phase 7); 4
+# shard-owning retrieval workers, worker 1 crashing at 0.3 s of virtual
+# time, which the 8 requests (arrivals up to 1.4 s) outlast (phase 8).
+WORLD, SHARD_K, SHARD_QUERIES, RANK_TIMEOUT_S = 4, 10, 16, 300
+SHARD_WORKERS, CRASH_WORKER, CRASH_AT_US = 4, 1, 300_000.0
+# topk_merge at pod scale (phase 6): 8192 queries, k 32, 3 candidate lists.
+POD_Q, POD_K, POD_M = 8192, 32, 96
 
 # Tolerances of the kernel-vs-plain comparisons.
 # f32: the kernel and the plain version differ only in summation order.
@@ -223,6 +248,74 @@ def attn_cases(torch, attn_ops, attn_ref, dev):
     return max(errs)
 
 
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def check_merge(torch, ops, ref, args, what):
+    """Kernel against plain, bit for bit (the merge does no arithmetic);
+    returns the largest |difference| of the finite distances (0.0)."""
+    dk, ik = ops.topk_merge(*args)
+    sync(torch, dk.device)
+    dr, ir = ref.topk_merge_ref(*args)
+    same = (ik.dtype == args[1].dtype and torch.equal(dk.view(torch.int32), dr.view(torch.int32))
+            and torch.equal(ik, ir))
+    if not same:
+        log(f"  topk_merge {what}: {int((dk != dr).sum())} distances and "
+            f"{int((ik != ir).sum())} ids differ")
+    need(same, f"topk_merge {what}: not equal to the plain version bit for bit")
+    fin = torch.isfinite(dr)
+    return float((dk[fin] - dr[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def merge_inputs(torch, gen, Q, k, m, id_dtype, dev):
+    """Half-filled ascending scoreboards; candidates that repeat running
+    distances, with NaN, -inf and +inf injected; ids of ``id_dtype``."""
+    rd = torch.rand((Q, k), generator=gen, device=dev).sort(dim=1).values
+    rd[:, (k + 1) // 2:] = float("inf")
+    cd = torch.rand((Q, m), generator=gen, device=dev)
+    dup = torch.rand((Q, m), generator=gen, device=dev) < 0.2
+    cd = torch.where(dup, torch.gather(rd, 1, torch.randint(0, k, (Q, m), generator=gen,
+                                                            device=dev)), cd)
+    special = torch.tensor([float("nan"), -float("inf"), float("inf")], device=dev)
+    bad = torch.rand((Q, m), generator=gen, device=dev) < 0.1
+    cd = torch.where(bad, special[torch.randint(0, 3, (Q, m), generator=gen, device=dev)], cd)
+    ri = torch.randint(0, 2**31 - 1, (Q, k), generator=gen, device=dev, dtype=id_dtype)
+    ci = torch.randint(0, 2**31 - 1, (Q, m), generator=gen, device=dev, dtype=id_dtype)
+    return rd, ri, cd, ci
+
+
+def merge_cases(torch, merge_ops, merge_ref, dev):
+    """topk_merge over k x m x Q x id type, and the tie / +inf-slot rules."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    errs = []
+    for Q in (1, 13, 8192):
+        for k in (1, 5, 10, 24, 32):
+            for m in (1, 3 * k, 1024):
+                for idt in (torch.int32, torch.int64):
+                    args = merge_inputs(torch, gen, Q, k, m, idt, dev)
+                    errs.append(check_merge(torch, merge_ops, merge_ref, args,
+                                            f"Q={Q} k={k} m={m} ids={str(idt)[6:]}"))
+    # ties go to the running entries; NaN and -inf sort last as +inf; the
+    # +inf slots keep the non-finite entries' ids in position order
+    run_d = torch.tensor([[0.5, 0.5, float("inf"), float("inf")]], device=dev)
+    run_i = torch.tensor([[1, 2, 3, 4]], device=dev)
+    cand_d = torch.tensor([[0.5, float("nan"), -float("inf"), 0.25]], device=dev)
+    cand_i = torch.tensor([[5, 6, 7, 8]], device=dev)
+    d, i = merge_ops.topk_merge(run_d, run_i, cand_d, cand_i)
+    need(d.tolist() == [[0.25, 0.5, 0.5, 0.5]] and i.tolist() == [[8, 1, 2, 5]],
+         f"topk_merge ties: got {d.tolist()} {i.tolist()}")
+    d, i = merge_ops.topk_merge(run_d[:, 2:], run_i[:, 2:], cand_d[:, 1:3], cand_i[:, 1:3])
+    need(bool(torch.isinf(d).all()) and i.tolist() == [[3, 4]],
+         f"topk_merge +inf slots: got {d.tolist()} {i.tolist()}")
+    log(f"  topk_merge: {len(errs)} cases (Q 1/13/8192, k 1..32, m 1/3k/1024, int32/int64 ids, "
+        f"half-filled boards, NaN/-inf/+inf, duplicates) equal to the plain version bit for bit; "
+        f"ties to the running entries, +inf-slot ids in position order")
+    return max(errs)
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -320,8 +413,10 @@ def serve_main_path(torch, dev, index, embedder):
     return launches, ivf_rec.best, attn_rec.best, hybrid, engine
 
 
-def check_retrieval_against_host(torch, index, hybrid, embedder):
-    """Device path (the kernel) against the host path on the real index."""
+def check_retrieval_against_host(torch, index, hybrid, embedder, owner=None):
+    """Device path (the kernel) against the host path on the real index;
+    with ``owner`` (shard mode), the device path of that worker's slots.
+    Returns the number of probed clusters that took the device path."""
     import numpy as np
 
     from repro_torch.retrieval.plan import BatchTopK, PlanBuilder
@@ -332,23 +427,24 @@ def check_retrieval_against_host(torch, index, hybrid, embedder):
     for i in range(len(queries)):
         b.add(queries[i], probes[i], k=10)
     plan = b.build()
-    resident = hybrid.resident_mask()
+    resident = hybrid.resident_mask(owner)
     n_dev = int(resident[plan.seg_cluster].sum())
-    dev_out = hybrid.search_plan(plan, resident=resident)
+    dev_out = hybrid.search_plan(plan, resident=resident, owner=owner)
     host_out = BatchTopK.empty(plan.n_items, plan.k)
     index.scan_segments(plan, np.arange(plan.n_segments), host_out)
     same = dev_out.ids == host_out.ids
     fin = np.isfinite(host_out.dists)
     err = float(np.abs(dev_out.dists[fin] - host_out.dists[fin]).max())
-    log(f"  retrieval: {plan.n_segments} clusters probed, {n_dev} on the device path; "
-        f"ids equal in {int(same.all(-1).sum())}/{plan.n_items} items; max |dist diff|={err:.3e}")
-    need(n_dev > 0, "no probed cluster was resident for the retrieval check")
+    log(f"  retrieval{'' if owner is None else f' (owner {owner})'}: {plan.n_segments} clusters "
+        f"probed, {n_dev} on the device path; ids equal in {int(same.all(-1).sum())}/"
+        f"{plan.n_items} items; max |dist diff|={err:.3e}")
     need(np.allclose(dev_out.dists[fin], host_out.dists[fin], rtol=1e-4, atol=1e-5),
          "device-path distances disagree with the host path")
     # an id may differ only where two rows tie within the tolerance
     for r, c in zip(*np.nonzero(~same)):
         need(np.isclose(dev_out.dists[r, c], host_out.dists[r, c], rtol=1e-4, atol=1e-5),
              "device-path ids disagree with the host path")
+    return n_dev
 
 
 def check_decode_against_prefill(torch, dev):
@@ -379,15 +475,313 @@ def check_decode_against_prefill(torch, dev):
     need(ok, "decode logits disagree with prefill logits")
 
 
-def time_kernels(torch, dev, ivf_in, attn_in, engine):
-    """Phase 6: each kernel, its plain version and (decode) SDPA, timed on
-    the inputs the main path gave them, beside the bound of that work."""
+# ---------------------------------------------------------------------------
+# the sharded path
+# ---------------------------------------------------------------------------
+
+
+def pack_slab(torch, dev, index, tile_len):
+    """The whole index as a (C, tile_len, d) f32 slab on ``dev`` (rows of
+    cluster c at tile c, zero-padded) and its (C,) int32 valid counts."""
+    import numpy as np
+
+    sizes = index.cluster_sizes()
+    C, d = index.n_clusters, index.dim
+    slab = torch.zeros((C, tile_len, d), dtype=torch.float32, device=dev)
+    cl = np.repeat(np.arange(C), sizes)
+    dest = cl * tile_len + (np.arange(index.flat.shape[0]) - index.offsets[cl])
+    slab.view(C * tile_len, d).index_copy_(0, torch.from_numpy(dest).to(dev),
+                                           torch.from_numpy(index.flat).to(dev))
+    return slab, torch.from_numpy(sizes.astype(np.int32)).to(dev)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sharded_rank(rank, world, port, q, shared, k):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.retrieval.distributed as dist_mod
+    from repro_torch.kernels.topk_merge import topk_merge
+
+    # the only references to the tensors shared by CUDA IPC: dropping them at
+    # the end releases the parent's slab
+    slab, valid = shared
+    shared.clear()
+    dev = slab.device
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        search = dist_mod.make_sharded_search(k)
+        qd = q.to(dev)
+        search(qd, slab, valid)  # warm-up: BLAS handles, the kernel's library
+        rec = Recorder(dist_mod.topk_merge, lambda *a: 0)  # keeps the first call
+        dist_mod.topk_merge = rec
+        sync(torch, dev)
+        dist.barrier()
+        topk_merge.launches = 0
+        t0 = time.perf_counter()
+        dists, rows = search(qd, slab, valid)
+        sync(torch, dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = topk_merge.launches
+        dist_mod.topk_merge = rec.fn
+        dist.barrier()  # no rank tears the group down while a peer still uses it
+        # gloo takes the CUDA tensors and passes them through the host
+        gather = f"gloo all-gather of {dev.type} tensors"
+        return {"d": dists.cpu().numpy(), "r": rows.cpu().numpy(), "launches": launches,
+                "wall_ms": wall_ms, "gather": gather, "tiles": int(slab.shape[0]),
+                "merge_in": [t.cpu().numpy() for t in rec.best]}
+    finally:
+        del slab, valid
+        sync(torch, dev)
+        dist.destroy_process_group()
+
+
+def sharded_rank(rank, world, port, q, shared, k, out):
+    """One rank of phase 7, in a spawned process: reports its result (or its
+    traceback) on ``out``.  ``shared`` is [slab range, valid range]."""
+    try:
+        out.put((rank, _sharded_rank(rank, world, port, q, shared, k)))
+    except BaseException:
+        out.put((rank, traceback.format_exc()))
+        raise
+
+
+def run_ranks(torch, q, slab, valid, k, world):
+    """Spawn ``world`` ranks, rank r on the r-th contiguous tile range of
+    ``slab``; returns their results by rank.  Fails if a rank fails, exits
+    without a result or does not report within ``RANK_TIMEOUT_S``."""
+    import torch.multiprocessing as tmp
+
+    Cl = slab.shape[0] // world
+    ctx = tmp.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=sharded_rank, daemon=True,
+                         args=(r, world, port, q,
+                               [slab[r * Cl:(r + 1) * Cl], valid[r * Cl:(r + 1) * Cl]], k, out))
+             for r in range(world)]
+    results = {}
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.start()
+        while len(results) < world:
+            try:
+                rank, res = out.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if r not in results and p.exitcode is not None]
+                need(not dead, f"ranks {dead} exited without a result")
+                need(time.monotonic() < deadline,
+                     f"ranks {sorted(set(range(world)) - set(results))} did not report "
+                     f"within {RANK_TIMEOUT_S}s")
+                continue
+            need(not isinstance(res, str), f"rank {rank} failed:\n{res}")
+            results[rank] = res
+        for p in procs:
+            p.join(timeout=60)
+        need(all(p.exitcode == 0 for p in procs),
+             f"rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return results
+
+
+def sharded_search(torch, dev, index, tile_len, embedder):
+    """Phase 7: make_sharded_search over WORLD ranks on the card, held
+    against reference_search over the whole slab."""
+    import numpy as np
+
+    from repro_torch.kernels.ivf_scan.ref import topk_agreement
+    from repro_torch.kernels.topk_merge import ops as merge_ops
+    from repro_torch.kernels.topk_merge import ref as merge_ref
+    from repro_torch.retrieval.distributed import reference_search
+
+    t0 = time.perf_counter()
+    slab, valid = pack_slab(torch, dev, index, tile_len)
+    sync(torch, dev)
+    log(f"  slab {tuple(slab.shape)} f32 ({slab.numel() * 4} bytes) on {dev.type}, "
+        f"packed in {time.perf_counter() - t0:.1f}s")
+    q = torch.from_numpy(np.stack([embedder.embed_query(i, 0) for i in range(SHARD_QUERIES)])
+                         .astype(np.float32))
+    t0 = time.perf_counter()
+    results = run_ranks(torch, q, slab, valid, SHARD_K, WORLD)
+    log(f"  {WORLD} ranks ({results[0]['gather']}) in {time.perf_counter() - t0:.1f}s; per rank: "
+        + ", ".join(f"rank {r} {res['tiles']} tiles, search {res['wall_ms']:.1f} ms, "
+                    f"topk_merge launches {res['launches']}" for r, res in sorted(results.items())))
+    d0, r0 = results[0]["d"], results[0]["r"]
+    for r, res in results.items():
+        need(np.array_equal(res["d"], d0) and np.array_equal(res["r"], r0),
+             f"rank {r}'s result differs from rank 0's: outputs must be replicated")
+        need(res["launches"] > 0, f"rank {r} launched topk_merge no time")
+    dref, rref = reference_search(q.to(dev), slab, valid, SHARD_K + 1)
+    err, ties, bad = topk_agreement(dref[:, :SHARD_K].cpu(), rref[:, :SHARD_K].cpu(),
+                                    dref[:, SHARD_K].cpu(), torch.from_numpy(d0),
+                                    torch.from_numpy(r0), **F32)
+    log(f"  sharded search vs reference_search over the whole slab (Q={SHARD_QUERIES}, "
+        f"k={SHARD_K}): max_abs_err={err:.3e} (rtol={F32['rtol']}, atol={F32['atol']}) "
+        f"boundary_ties={ties} mismatched_rows={bad}")
+    need(bad == 0, f"sharded search: {bad} query rows disagree with reference_search")
+    del slab, valid, dref, rref
+    if dev.type == "cuda":
+        torch.cuda.ipc_collect()  # the ranks have released their views
+        torch.cuda.empty_cache()
+    check_against_brute_force(torch, dev, index, tile_len, q, d0, r0)
+    # the kernel against its plain version on each rank's own merge inputs
+    merge_in = {r: [torch.from_numpy(a).to(dev) for a in res["merge_in"]]
+                for r, res in results.items()}
+    merr = max(check_merge(torch, merge_ops, merge_ref, args, f"rank {r}'s merge input")
+               for r, args in merge_in.items())
+    rd, ri, cd, ci = merge_in[0]
+    log(f"  topk_merge on the ranks' inputs (run {tuple(rd.shape)}, cand {tuple(cd.shape)}, "
+        f"ids {str(ri.dtype)[6:]}): equal to the plain version bit for bit")
+    return sum(res["launches"] for res in results.values()), merr, merge_in[0]
+
+
+def check_against_brute_force(torch, dev, index, tile_len, q, dists, rows):
+    """A witness independent of the port's scan: exact f64 distances from
+    every query to every row of the index, in row order, stably sorted;
+    the sharded search's global slab rows are mapped back to index rows."""
+    import numpy as np
+
+    from repro_torch.kernels.ivf_scan.ref import topk_agreement
+
+    k = dists.shape[1]
+    flat = torch.from_numpy(index.flat).to(dev, torch.float64)
+    qd = q.to(dev, torch.float64)
+    d2 = (qd * qd).sum(-1, keepdim=True) - 2.0 * qd @ flat.T + (flat * flat).sum(-1)[None, :]
+    del flat
+    bd, bi = torch.sort(d2, dim=1, stable=True)
+    bd, bi = bd[:, :k + 1].cpu(), bi[:, :k + 1].cpu()
+    del d2
+    tile, col = rows // tile_len, rows % tile_len
+    got_rows = torch.from_numpy(index.offsets[tile] + col)
+    err, ties, bad = topk_agreement(bd[:, :k], bi[:, :k], bd[:, k], torch.from_numpy(dists),
+                                    got_rows, **F32)
+    log(f"  sharded search vs exact f64 brute force over all {index.flat.shape[0]} rows: "
+        f"max_abs_err={err:.3e} (rtol={F32['rtol']}, atol={F32['atol']}) boundary_ties={ties} "
+        f"mismatched_rows={bad}")
+    need(bad == 0, f"sharded search: {bad} query rows disagree with the brute force")
+
+
+def serve_sharded(torch, dev, index, embedder, engine):
+    """Phase 8: shard-mode serving over RealBackend with one crashed worker."""
+    import numpy as np
+
+    from repro_torch import workflows
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ivf_scan import ivf_scan
+    from repro_torch.kernels.topk_merge import topk_merge
+    from repro_torch.launch.serve import build_server
+    from repro_torch.retrieval import HybridRetrievalEngine
+    from repro_torch.retrieval.distributed import scatter_gather_search
+    from repro_torch.retrieval.plan import PlanBuilder
+    from repro_torch.serving.faults import FaultPlan, WorkerCrash
+
+    hybrid = HybridRetrievalEngine(index, cache_capacity=CACHE_CAPACITY,
+                                   update_interval=CACHE_UPDATE_INTERVAL,
+                                   transit_substages=CACHE_TRANSIT, device=dev)
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(1, engine.cfg.vocab_size, size=int(n)).astype(np.int64)
+               for n in rng.integers(512, 1025, size=N_REQUESTS)]
+    plan = FaultPlan(crashes=(WorkerCrash(CRASH_WORKER, CRASH_AT_US),))
+    server = build_server(engine, index, embedder, hybrid, prompts, max_new=MAX_NEW,
+                          nprobe=NPROBE, ret_workers=SHARD_WORKERS, index_sharding=True,
+                          fault_plan=plan)
+    names = [WORKFLOW_NAMES[i % len(WORKFLOW_NAMES)] for i in range(N_REQUESTS)]
+    kernels = (ivf_scan, decode_attention, topk_merge)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i, name in enumerate(names):
+        server.add_request(f"request {i}", workflows.build(name), arrival_us=i * ARRIVAL_GAP_US)
+    m = server.run()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    sched = server.sched
+    rep = server.shard_report()
+    st = hybrid.stats()
+    log(f"  plan: {plan.describe()}")
+    log(f"  finished={m.finished} shed={m.shed} degraded={m.degraded_completions} of {N_REQUESTS} "
+        f"wall={wall:.2f}s worker_deaths={m.worker_deaths} failovers={m.failovers} "
+        f"shard_scatters={rep['shard_scatters']} shard_parts={rep['shard_parts']} "
+        f"shard_merges={rep['shard_merges']} per_owner_resident={rep['per_owner_resident']} "
+        f"cache_hits={st['hits']} cache_misses={st['misses']} launches={launches}")
+    need(not sched.active and not sched.pending and m.finished + m.shed == N_REQUESTS,
+         f"shard mode: {m.finished} finished + {m.shed} shed of {N_REQUESTS}; "
+         f"{len(sched.active)} active, {len(sched.pending)} pending")
+    need(m.worker_deaths == 1, f"shard mode: {m.worker_deaths} worker deaths, expected 1")
+    need(rep["shard_scatters"] > 0 and rep["shard_merges"] > 0, "shard mode: no scatter-gather")
+    need(sum(v > 0 for v in rep["per_owner_resident"].values()) >= 2,
+         "shard mode: fewer than 2 owners hold resident clusters")
+    need(launches["ivf_scan"] > 0, "shard mode launched ivf_scan no time")
+    sm = sched.shard_map
+    survivors = {w for w in range(sm.n_shards) if sched.lifecycle.alive(w)}
+    # each surviving owner's device path (its own slots) against the host path
+    n_dev = sum(check_retrieval_against_host(torch, index, hybrid, embedder, owner=w)
+                for w in sorted(survivors))
+    need(n_dev > 0, "shard mode: no probed cluster was resident on a surviving owner")
+    # surviving-shard parity: scatter-gather over the survivors against one
+    # plan over the same filtered probe lists, on the real index
+    q = np.stack([embedder.embed_query(1000 + i, 0) for i in range(4)]).astype(np.float32)
+    D, I = scatter_gather_search(index, q, 16, 5, sm, shards=survivors)
+    probes = index.probe_order(q, 16)
+    b = PlanBuilder()
+    for r in range(q.shape[0]):
+        b.add(q[r], [int(c) for c in probes[r] if int(sm.owner[c]) in survivors], k=5)
+    ref_plan = b.build()
+    res = ref_plan.finalize(index.search_plan(ref_plan))
+    same = np.array_equal(D, res.dists[:, :5]) and np.array_equal(I, res.ids[:, :5])
+    log(f"  scatter_gather_search over surviving shards {sorted(survivors)} vs one plan: "
+        f"{'equal bit for bit' if same else 'DIFFERENT'}")
+    need(same, "scatter_gather_search over the surviving shards differs from its oracle")
+    return launches
+
+
+def time_merge(torch, dev, merge_ops, merge_ref, args, what):
+    """topk_merge, its plain version and torch.topk over the candidates
+    concatenated beforehand (timed only: it promises no order among ties)."""
+    rd, ri, cd, ci = args
+    (Q, k), m, idb = rd.shape, cd.shape[1], ri.element_size()
+    # every distance read once, the k selected ids read once, k pairs written
+    n_bytes = Q * (k + m) * 4 + Q * k * idb + Q * k * (4 + idb)
+    b_ms, b_by = bound(n_bytes, 0, F32_FLOPS)  # no arithmetic: bytes bound it
+    ms = time_ms(torch, dev, lambda: merge_ops.topk_merge(rd, ri, cd, ci), iters=50)
+    plain = time_ms(torch, dev, lambda: merge_ref.topk_merge_ref(rd, ri, cd, ci), iters=50)
+    cat = torch.cat([rd, cd], dim=1)
+    lib = time_ms(torch, dev, lambda: torch.topk(cat, k, dim=1, largest=False), iters=50)
+    log(f"  topk_merge {what} Q={Q} k={k} m={m} ids {str(ri.dtype)[6:]}: {n_bytes} bytes; "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.topk {lib:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by})")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in):
+    """Phase 6: each kernel, its plain version and (decode, merge) one
+    PyTorch call, timed on the inputs the main path and the sharded search
+    gave them, beside the bound of that work; topk_merge also at pod scale."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as attn_ops
     from repro_torch.kernels.decode_attention import ref as attn_ref
     from repro_torch.kernels.ivf_scan import ops as ivf_ops
     from repro_torch.kernels.ivf_scan import ref as ivf_ref
+    from repro_torch.kernels.topk_merge import ops as merge_ops
+    from repro_torch.kernels.topk_merge import ref as merge_ref
     from repro_torch.models import lm
 
     q, gc, slab, valid, k = ivf_in
@@ -438,7 +832,13 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine):
         f"launches): {step_ms:.3f} ms; attention kernels {n_layers * attn_ms:.3f} ms of it "
         f"({100 * n_layers * attn_ms / step_ms:.1f}%)")
 
+    merge = time_merge(torch, dev, merge_ops, merge_ref, merge_in, "sharded-search input")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    time_merge(torch, dev, merge_ops, merge_ref,
+               merge_inputs(torch, gen, POD_Q, POD_K, POD_M, torch.int64, dev), "pod scale")
     return {
+        "topk_merge": merge,
         "ivf_scan": {"ms": ivf_ms, "plain_ms": ivf_plain, "bound_ms": ivf_bound,
                      "bound_by": ivf_by, "library_ms": None},
         "decode_attention": {"ms": attn_ms, "plain_ms": attn_plain, "bound_ms": attn_bound,
@@ -474,6 +874,8 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as attn_ref
     from repro_torch.kernels.ivf_scan import ops as ivf_ops
     from repro_torch.kernels.ivf_scan import ref as ivf_ref
+    from repro_torch.kernels.topk_merge import ops as merge_ops
+    from repro_torch.kernels.topk_merge import ref as merge_ref
     from repro_torch.retrieval import CorpusConfig, IVFIndex, SyntheticEmbedder, make_corpus
 
     # 1. device and build ----------------------------------------------------
@@ -509,6 +911,7 @@ def main() -> int:
     log("[3] kernels against their plain versions")
     ivf_err, ivf_ties = ivf_cases(torch, ivf_ops, ivf_ref, index, tile_len, dev)
     attn_err = attn_cases(torch, attn_ops, attn_ref, dev)
+    merge_err = merge_cases(torch, merge_ops, merge_ref, dev)
     log(f"  ivf_scan boundary ties counted: {ivf_ties}")
 
     # 4. the main path ----------------------------------------------------------
@@ -524,12 +927,26 @@ def main() -> int:
 
     # 5. outputs by the repo's own means ----------------------------------------
     log("[5] outputs")
-    check_retrieval_against_host(torch, index, hybrid, embedder)
+    need(check_retrieval_against_host(torch, index, hybrid, embedder) > 0,
+         "no probed cluster was resident for the retrieval check")
     check_decode_against_prefill(torch, dev)
 
-    # 6. times ------------------------------------------------------------------
-    log("[6] times at the main path's inputs (CUDA events, cold L2)")
-    t = time_kernels(torch, dev, ivf_in, attn_in, engine)
+    # 7. the sharded search ----------------------------------------------------
+    log(f"[7] sharded search: {WORLD} gloo ranks on one card, the whole index")
+    t0 = time.perf_counter()
+    merge_launches, e, merge_in = sharded_search(torch, dev, index, tile_len, embedder)
+    merge_err = max(merge_err, e)
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f}s")
+
+    # 8. shard-mode serving -----------------------------------------------------
+    log(f"[8] shard-mode serving: {SHARD_WORKERS} shard owners, worker {CRASH_WORKER} crashes")
+    t0 = time.perf_counter()
+    serve_sharded(torch, dev, index, embedder, engine)
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f}s")
+
+    # 6. times (last: on the inputs phases 4 and 7 gave the kernels) -------------
+    log("[6] times at the paths' inputs (CUDA events, cold L2)")
+    t = time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in)
 
     kernels = [
         {"name": "ivf_scan", "route": "cuda", "source": "src/repro_torch/csrc/ivf_scan.cu",
@@ -540,6 +957,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_attention/decode_attention.py:80",
          "launches": launches["decode_attention"], "max_abs_err": attn_err,
          **t["decode_attention"]},
+        {"name": "topk_merge", "route": "cuda", "source": "src/repro_torch/csrc/topk_merge.cu",
+         "replaces": "src/repro/kernels/topk_merge/topk_merge.py:50",
+         "launches": merge_launches, "max_abs_err": merge_err, **t["topk_merge"]},
     ]
     log(f"  total {time.perf_counter() - t_all:.1f}s")
     need(all(np.isfinite([r["ms"], r["plain_ms"], r["bound_ms"]]).all() for r in kernels),

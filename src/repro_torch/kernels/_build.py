@@ -23,7 +23,7 @@ import threading
 import time
 from pathlib import Path
 
-KERNELS = ("ivf_scan", "decode_attention")
+KERNELS = ("ivf_scan", "decode_attention", "topk_merge")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (

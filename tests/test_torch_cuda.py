@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
 from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_ref
 from repro_torch.kernels.ivf_scan.ref import topk_agreement
+from repro_torch.kernels.topk_merge import topk_merge, topk_merge_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -135,9 +136,64 @@ def test_decode_attention_kernel_bf16_qwen3_shape(cuda):
                                **ATTN_BF16)
 
 
+def _merge_inputs(rng, Q, k, m, id_dtype, dev):
+    """Half-filled ascending scoreboards; candidates with duplicates of the
+    running distances and injected NaN, -inf and +inf."""
+    rd = np.sort(rng.random((Q, k)).astype(np.float32), axis=1)
+    rd[:, (k + 1) // 2:] = np.inf
+    cd = rng.random((Q, m)).astype(np.float32)
+    dup = rng.random((Q, m)) < 0.2
+    cd[dup] = np.take_along_axis(rd, rng.integers(0, k, (Q, m)), axis=1)[dup]
+    bad = rng.random((Q, m)) < 0.1
+    cd[bad] = rng.choice(np.float32([np.nan, -np.inf, np.inf]), size=int(bad.sum()))
+    ri = rng.integers(0, 2**31 - 1, (Q, k))
+    ci = rng.integers(0, 2**31 - 1, (Q, m))
+    return [torch.as_tensor(a).to(dev) for a in (rd, ri.astype(id_dtype), cd, ci.astype(id_dtype))]
+
+
+@pytest.mark.parametrize("Q", [1, 13, 8192])
+@pytest.mark.parametrize("k,m", [(1, 1), (5, 15), (10, 1024), (24, 3), (32, 96)])
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
+def test_topk_merge_kernel_equals_plain(cuda, Q, k, m, id_dtype):
+    """No arithmetic: distances and ids equal the plain version bit for bit."""
+    args = _merge_inputs(np.random.default_rng(Q + k + m), Q, k, m, id_dtype, cuda)
+    dk, ik = topk_merge(*args)
+    torch.cuda.synchronize()
+    dr, ir = topk_merge_ref(*args)
+    assert ik.dtype == args[1].dtype
+    assert torch.equal(dk, dr) and torch.equal(ik, ir)
+
+
+def test_topk_merge_kernel_ties_go_to_run_and_inf_slots_keep_ids(cuda):
+    run_d = torch.tensor([[0.5, 0.5, torch.inf, torch.inf]], device=cuda)
+    run_i = torch.tensor([[1, 2, 3, 4]], device=cuda)
+    cand_d = torch.tensor([[0.5, float("nan"), -torch.inf, 0.25]], device=cuda)
+    cand_i = torch.tensor([[5, 6, 7, 8]], device=cuda)
+    d, i = topk_merge(run_d, run_i, cand_d, cand_i)
+    assert d.tolist() == [[0.25, 0.5, 0.5, 0.5]] and i.tolist() == [[8, 1, 2, 5]]
+    d, i = topk_merge(run_d[:, 2:], run_i[:, 2:], cand_d[:, 1:3], cand_i[:, 1:3])
+    assert torch.isinf(d).all() and i.tolist() == [[3, 4]]
+
+
+def test_topk_merge_kernel_refuses_what_it_cannot_take(cuda):
+    d = torch.zeros((2, 8), device=cuda)
+    i = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    big = torch.zeros((2, 20_000), device=cuda)
+    with pytest.raises(ValueError):
+        topk_merge(d, i, big, big.int())
+    with pytest.raises(ValueError):
+        topk_merge(d, i, d.t().contiguous().t(), i)
+    with pytest.raises(TypeError):
+        topk_merge(d.bfloat16(), i, d, i)
+
+
 def test_kernels_count_launches(cuda):
     n0 = decode_attention.launches
     q = torch.zeros((1, 2, 64), device=cuda)
     kv = torch.zeros((1, 8, 1, 64), device=cuda)
     decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32, device=cuda))
     assert decode_attention.launches == n0 + 1
+    m0 = topk_merge.launches
+    d = torch.zeros((3, 4), device=cuda)
+    topk_merge(d, d.long(), d, d.long())
+    assert topk_merge.launches == m0 + 1

@@ -22,7 +22,7 @@ COPIES = sorted(
                                 "speculation", "substage", "transforms", "stages",
                                 "wavefront", "backends")]
     + [f"retrieval/{m}.py" for m in ("plan", "hotcache", "synthetic", "lexical")]
-    + [f"serving/{m}.py" for m in ("dispatch", "lifecycle", "workload")]
+    + [f"serving/{m}.py" for m in ("dispatch", "faults", "lifecycle", "workload")]
     + ["server.py", "workflows.py"]
 )
 
@@ -45,11 +45,30 @@ def test_no_jax_and_no_repro_imports(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
 
 
+def _rename(text: str) -> str:
+    return re.sub(r"\brepro(?=\.|\s+import\b)", "repro_torch", text)
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copies_equal_their_sources(rel):
     src = (SRC / "repro" / rel).read_text()  # read as text, never imported
-    expected = re.sub(r"\brepro(?=\.|\s+import\b)", "repro_torch", src)
-    assert (PORT / rel).read_text() == expected
+    assert (PORT / rel).read_text() == _rename(src)
+
+
+def _segment(path: Path, name: str) -> str:
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.ClassDef, ast.FunctionDef)) and node.name == name:
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"{path.name} defines no {name}")
+
+
+@pytest.mark.parametrize("name", ["ShardMap", "scatter_gather_search"])
+def test_distributed_numpy_parts_equal_their_sources(name):
+    """``retrieval/distributed.py`` rewrites the JAX search in torch but keeps
+    the serving path's numpy side as a copy."""
+    rel = Path("retrieval") / "distributed.py"
+    assert _segment(PORT / rel, name) == _rename(_segment(SRC / "repro" / rel, name))
 
 
 def test_port_runs_with_jax_and_repro_blocked(tmp_path):
