@@ -11,7 +11,10 @@
    the card.
 3. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes and at edge cases, each beside the tolerance it is held to
-   (``topk_merge`` does no arithmetic and is held bit for bit).
+   (``topk_merge`` does no arithmetic and is held bit for bit).  The split
+   kernels also at forced small splits (cache lengths and valid counts at
+   and around split edges, identical rows across an edge, length 0), and
+   each twice on one input, which must give the same bits.
 4. The main path: ``Server(mode="hedra", nprobe=32)`` over ``RealBackend``,
    with qwen3-1.7b at full width and depth (28 layers, bf16, seeded random
    weights) and the hybrid retrieval engine (512 device-resident clusters),
@@ -38,7 +41,10 @@
 6. Times with CUDA events (run last, on the inputs phases 4 and 7 gave the
    kernels): each kernel, its plain version and, where there is one, one
    PyTorch call computing the same function, beside the least time the
-   card could take for that work.
+   card could take for that work and the time of one ``torch.sum`` over as
+   many bytes; ``ivf_scan`` also at a fixed shape made from SEED (17 real
+   clusters, one real query a group, k 5), which the main path's varying
+   G does not give.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero without it.
@@ -149,12 +155,13 @@ def bound(n_bytes, n_ops, peak_ops):
 # ---------------------------------------------------------------------------
 
 
-def check_ivf(torch, ops, ref, q, gc, slab, valid, k, tol, what):
+def check_ivf(torch, ops, ref, q, gc, slab, valid, k, tol, what, span=None):
     """Kernel against plain on one input; returns (max_abs_err, boundary ties).
+    ``span`` forces the kernel's rows per block.
 
     Only real query rows are compared: the all-zero rows that pad a group to
     QB see every row of the cluster at one distance, all ties."""
-    dk, ik = ops.ivf_scan(q, gc, slab, valid, k)
+    dk, ik = ops.ivf_scan(q, gc, slab, valid, k, _span=span)
     torch.cuda.synchronize()
     kk = min(k + 1, slab.shape[1])
     dr, ir = ref.ivf_scan_ref(q, gc, slab, valid, kk)
@@ -168,8 +175,9 @@ def check_ivf(torch, ops, ref, q, gc, slab, valid, k, tol, what):
     return err, ties
 
 
-def check_attn(torch, ops, ref, q, k, v, lengths, tol, what):
-    out = ops.decode_attention(q, k, v, lengths)
+def check_attn(torch, ops, ref, q, k, v, lengths, tol, what, chunk=None):
+    """Kernel against plain; ``chunk`` forces the kernel's cache rows per block."""
+    out = ops.decode_attention(q, k, v, lengths, _chunk=chunk)
     torch.cuda.synchronize()
     exp = ref.decode_attention_ref(q, k, v, lengths)
     err = float((out.float() - exp.float()).abs().max())
@@ -178,6 +186,19 @@ def check_attn(torch, ops, ref, q, k, v, lengths, tol, what):
         f"(rtol={tol['rtol']}, atol={tol['atol']}) {'ok' if ok else 'FAIL'}")
     need(ok and torch.isfinite(out).all(), f"decode_attention {what} disagrees with the plain version")
     return err
+
+
+def same_bits_twice(torch, fn, what):
+    """Two calls on one input give the same bits (the split kernels combine
+    their blocks in split order, whichever block finishes last)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
+    bits = {4: torch.int32, 2: torch.int16}
+    same = all(torch.equal(x.view(bits[x.element_size()]), y.view(bits[y.element_size()]))
+               for x, y in zip(a, b))
+    log(f"  {what}: two calls {'bit-identical' if same else 'DIFFER'}")
+    need(same, f"{what}: two calls on one input differ")
 
 
 def ivf_cases(torch, ivf_ops, ivf_ref, index, tile_len, dev):
@@ -218,6 +239,31 @@ def ivf_cases(torch, ivf_ops, ivf_ref, index, tile_len, dev):
     need(bool(torch.isinf(dd[1]).all()) and bool((di[1] == -1).all()),
          "ivf_scan empty cluster: every slot must be (+inf, -1)")
     log("  ivf_scan duplicate rows: ids 0..23 in order; valid=0 cluster: all (+inf, -1)")
+    # forced small spans (a cluster's rows over up to 32 blocks): valid 0, 1,
+    # L and at and around split edges, on the same real clusters
+    for span in (24, 37, 100):
+        ev = t["valid"].clone()
+        ev[:6] = torch.tensor([0, 1, tile_len, span, span + 1, 2 * span - 1], device=dev)
+        e, n = check_ivf(torch, ivf_ops, ivf_ref, t["q"], t["gc"], t["slab"], ev, 10, F32,
+                         f"span={span} k=10 valid 0/1/L/edges", span=span)
+        errs.append(e)
+        ties += n
+    # identical rows straddling a split edge, nearer than any other row
+    # (small integers: exact distances, exact ties): the lower rows win
+    span = 24
+    tie = torch.arange(span - 3, span + 3, device=dev)
+    edge = torch.as_tensor(rng.integers(3, 6, size=(1, tile_len, index.dim)), dtype=torch.float32,
+                           device=dev)
+    edge[:, tie] = 1.0
+    ed, ei = ivf_ops.ivf_scan(dq[:1], dgc[:1], edge, dvalid[:1], 6, _span=span)
+    torch.cuda.synchronize()
+    need(torch.equal(ei[0].cpu(), tie.int().cpu().expand(QB, 6)) and bool((ed == index.dim).all()),
+         f"ivf_scan ties across a split edge: got ids {ei[0, 0].tolist()}")
+    log(f"  ivf_scan identical rows {tie.tolist()} across the edge of span {span}: ids in row order")
+    same_bits_twice(torch, lambda: ivf_ops.ivf_scan(t["q"], t["gc"], t["slab"], t["valid"], 5),
+                    "ivf_scan default span")
+    same_bits_twice(torch, lambda: ivf_ops.ivf_scan(t["q"], t["gc"], t["slab"], t["valid"], 24,
+                                                   _span=37), "ivf_scan span=37 k=24")
     return max(errs), ties
 
 
@@ -245,6 +291,30 @@ def attn_cases(torch, attn_ops, attn_ref, dev):
         lengths[0] = 1
         errs.append(check_attn(torch, attn_ops, attn_ref, q, k, v, lengths, F32,
                                f"B={B} H={H} KV={KV} dh={dh} S={S} f32"))
+    # forced small chunks (the cache over many blocks): lengths 1, S and at
+    # and around chunk edges; G = 10, two head groups a kv head
+    B, H, KV, dh, S = 8, 20, 2, 64, 300
+    for chunk in (1, 7, 32, 100):
+        lengths = torch.tensor([1, S, chunk, chunk + 1, max(1, chunk - 1), 2 * chunk,
+                                3 * chunk + 1, S - 1], dtype=torch.int32, device=dev).clamp(1, S)
+        for dtype, tol in ((torch.float32, F32), (torch.bfloat16, ATTN_BF16)):
+            q, k, v = make(B, H, KV, dh, S, dtype)
+            errs.append(check_attn(torch, attn_ops, attn_ref, q, k, v, lengths, tol,
+                                   f"chunk={chunk} lengths={lengths.tolist()} {str(dtype)[6:]}",
+                                   chunk=chunk))
+    # a length of 0 gives zeros (acc / max(l, 1e-30)), split or not
+    q, k, v = make(2, 4, 2, 64, 64, torch.float32)
+    zl = torch.tensor([0, 64], dtype=torch.int32, device=dev)
+    for chunk in (None, 7):
+        out = attn_ops.decode_attention(q, k, v, zl, _chunk=chunk)
+        torch.cuda.synchronize()
+        need(bool((out[0] == 0).all()), f"decode_attention length 0 (chunk={chunk}): not zeros")
+    log("  decode_attention length 0: zeros (default chunk and chunk=7)")
+    q, k, v = make(8, 16, 8, 128, 2048, torch.bfloat16)
+    lengths = torch.tensor([1, 127, 128, 129, 1057, 1500, 2047, 2048], dtype=torch.int32, device=dev)
+    for chunk in (None, 32):
+        same_bits_twice(torch, lambda: attn_ops.decode_attention(q, k, v, lengths, _chunk=chunk),
+                        f"decode_attention qwen3-1.7b shape chunk={chunk or 'default'}")
     return max(errs)
 
 
@@ -770,10 +840,54 @@ def time_merge(torch, dev, merge_ops, merge_ref, args, what):
     return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
 
-def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in):
+def fixed_ivf_input(torch, index, tile_len, dev):
+    """ivf_scan at one fixed shape made from SEED, so that runs compare like
+    with like (the main path's G changes from run to run): 17 groups on 17
+    distinct real clusters, each group one real query (near its cluster's
+    centroid, as IVF probes are) and QB - 1 zero rows, k 5."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 8)
+    G, QB = 17, 8
+    cids = rng.choice(index.n_clusters, G, replace=False)
+    slab = np.zeros((G, tile_len, index.dim), np.float32)
+    valid = np.zeros((G,), np.int32)
+    for s, cid in enumerate(cids):
+        lo, hi = int(index.offsets[cid]), int(index.offsets[cid + 1])
+        slab[s, : hi - lo] = index.flat[lo:hi]
+        valid[s] = hi - lo
+    q = np.zeros((G, QB, index.dim), np.float32)
+    real = index.centroids[cids] + 0.05 * rng.standard_normal((G, index.dim))
+    q[:, 0] = real / np.linalg.norm(real, axis=-1, keepdims=True)
+    gc = np.arange(G, dtype=np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (q, gc, slab, valid)) + (5,)
+
+
+def ivf_sizing(torch, q, gc, slab, valid, k):
+    """(bytes, f32 FLOPs) ivf_scan must move and do on this input: the valid
+    rows of each distinct probed cluster read once, the queries, the cluster
+    ids and counts, the output; 2*d FLOPs per (real query, valid row)."""
+    G, QB, d = q.shape
+    rows = valid[gc.long()].long()
+    uniq = torch.unique(gc.long())
+    n_bytes = (int(valid[uniq].long().sum()) * d * slab.element_size() + q.numel() * q.element_size()
+               + 4 * (G + slab.shape[0]) + G * QB * k * 8)
+    n_ops = 2 * d * int((rows * (q.abs().sum(-1) > 0).sum(-1)).sum())
+    return n_bytes, n_ops
+
+
+def read_floor_ms(torch, dev, n_bytes):
+    """One PyTorch kernel that reads ``n_bytes`` once (a sum), timed as the
+    kernels are: what this timing gives for streaming those bytes."""
+    buf = torch.ones(max(1, n_bytes // 4), dtype=torch.float32, device=dev)
+    return time_ms(torch, dev, lambda: buf.sum(), iters=50)
+
+
+def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
     """Phase 6: each kernel, its plain version and (decode, merge) one
     PyTorch call, timed on the inputs the main path and the sharded search
-    gave them, beside the bound of that work; topk_merge also at pod scale."""
+    gave them, beside the bound of that work; ivf_scan also at a fixed
+    shape, topk_merge also at pod scale."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as attn_ops
@@ -784,21 +898,25 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in):
     from repro_torch.kernels.topk_merge import ref as merge_ref
     from repro_torch.models import lm
 
-    q, gc, slab, valid, k = ivf_in
+    def time_ivf(q, gc, slab, valid, k, what):
+        G, QB, d = q.shape
+        real_q = int((q.abs().sum(-1) > 0).sum())
+        n_bytes, n_ops = ivf_sizing(torch, q, gc, slab, valid, k)
+        b_ms, b_by = bound(n_bytes, n_ops, F32_FLOPS)
+        ms = time_ms(torch, dev, lambda: ivf_ops.ivf_scan(q, gc, slab, valid, k), iters=50)
+        plain = time_ms(torch, dev, lambda: ivf_ref.ivf_scan_ref(q, gc, slab, valid, k), iters=5)
+        floor = read_floor_ms(torch, dev, n_bytes)
+        log(f"  ivf_scan {what} G={G} QB={QB} (real queries {real_q}) d={d} L={slab.shape[1]} "
+            f"k={k}: {n_bytes} bytes, {n_ops} f32 FLOP; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), library none; one torch.sum over as many bytes "
+            f"{floor:.4f} ms")
+        return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    tiny = torch.zeros(1, device=dev)
+    log(f"  timing floor: a one-element kernel {time_ms(torch, dev, lambda: tiny.add_(1), iters=50):.4f} ms")
+    ivf = time_ivf(*ivf_in, "main-path input")
+    time_ivf(*fixed_ivf, "fixed shape (17 real clusters, 1 real query a group)")
     aq, ak, av, alen = attn_in
-    G, QB, d = q.shape
-    real_q = int((q.abs().sum(-1) > 0).sum())
-    rows = valid[gc.long()].long()
-    uniq = torch.unique(gc.long())
-    ivf_bytes = (int(valid[uniq].long().sum()) * d * slab.element_size() + q.numel() * q.element_size()
-                 + 4 * (G + slab.shape[0]) + G * QB * k * 8)
-    ivf_ops_n = 2 * d * int((rows * (q.abs().sum(-1) > 0).sum(-1)).sum())
-    ivf_bound, ivf_by = bound(ivf_bytes, ivf_ops_n, F32_FLOPS)
-    ivf_ms = time_ms(torch, dev, lambda: ivf_ops.ivf_scan(q, gc, slab, valid, k))
-    ivf_plain = time_ms(torch, dev, lambda: ivf_ref.ivf_scan_ref(q, gc, slab, valid, k), iters=5)
-    log(f"  ivf_scan G={G} QB={QB} (real queries {real_q}) d={d} L={slab.shape[1]} k={k}: "
-        f"{ivf_bytes} bytes, {ivf_ops_n} f32 FLOP; kernel {ivf_ms:.4f} ms, plain "
-        f"{ivf_plain:.4f} ms, bound {ivf_bound:.4f} ms ({ivf_by}), library none")
 
     B, H, dh = aq.shape
     KV = ak.shape[2]
@@ -823,7 +941,8 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in):
     log(f"  decode_attention B={B} H={H} KV={KV} dh={dh} S={ak.shape[1]} "
         f"sum(lengths)={int(lens.sum())}: {attn_bytes} bytes, {attn_ops_n} FLOP; kernel "
         f"{attn_ms:.4f} ms, plain {attn_plain:.4f} ms, SDPA {attn_lib:.4f} ms "
-        f"(max |SDPA - plain| {lib_err:.3e}), bound {attn_bound:.4f} ms ({attn_by})")
+        f"(max |SDPA - plain| {lib_err:.3e}), bound {attn_bound:.4f} ms ({attn_by}); one "
+        f"torch.sum over as many bytes {read_floor_ms(torch, dev, attn_bytes):.4f} ms")
     # the decode step those launches sit in: all layers at the same state
     step_ms = time_ms(torch, dev, lambda: lm.decode_step(engine.params, engine.cfg,
                                                     engine._last_tokens, engine.state), iters=5)
@@ -839,8 +958,7 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in):
                merge_inputs(torch, gen, POD_Q, POD_K, POD_M, torch.int64, dev), "pod scale")
     return {
         "topk_merge": merge,
-        "ivf_scan": {"ms": ivf_ms, "plain_ms": ivf_plain, "bound_ms": ivf_bound,
-                     "bound_by": ivf_by, "library_ms": None},
+        "ivf_scan": ivf,
         "decode_attention": {"ms": attn_ms, "plain_ms": attn_plain, "bound_ms": attn_bound,
                              "bound_by": attn_by, "library_ms": attn_lib},
     }
@@ -946,7 +1064,8 @@ def main() -> int:
 
     # 6. times (last: on the inputs phases 4 and 7 gave the kernels) -------------
     log("[6] times at the paths' inputs (CUDA events, cold L2)")
-    t = time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in)
+    t = time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in,
+                     fixed_ivf_input(torch, index, tile_len, dev))
 
     kernels = [
         {"name": "ivf_scan", "route": "cuda", "source": "src/repro_torch/csrc/ivf_scan.cu",

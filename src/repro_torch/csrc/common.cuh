@@ -7,9 +7,6 @@
 
 namespace repro_torch {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
@@ -22,45 +19,45 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// One 16-byte read-only global load, kept raw: 4 f32 or 8 bf16 values.
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// One 16-byte global load, widened to float: 4 f32 or 8 bf16 values.
-template <typename T> struct Vec16;
-
-template <> struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* f) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-  }
-};
-
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
-// Asynchronous 16-byte copy global -> shared (sm_80+), bypassing L1.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+// Widen 16 raw bytes to float: 4 f32 or 8 bf16 values (a bf16 is the high
+// half of the f32 with the same bits, so widening is a shift).
+template <typename T> __device__ __forceinline__ void unpack16(const uint4& v, float* f);
+template <> __device__ __forceinline__ void unpack16<float>(const uint4& v, float* f) {
+  f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& v, float* f) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Cross-block combine of a split grid.  Every thread of a block calls this
+// after writing the block's partial result; it returns true, in every
+// thread, in the last of the `n` blocks to arrive at `*counter`, and that
+// block resets the counter to 0 for the next launch.  The last block then
+// sees every other block's partials (read them with __ldcg, from L2: this
+// SM's L1 may hold stale lines).  The order in which blocks arrive decides
+// only which block combines, never the order in which partials are summed.
+__device__ __forceinline__ bool last_to_arrive(unsigned* counter, unsigned n) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1u) == n - 1;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }
 
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.

@@ -11,6 +11,10 @@ the source and the flags, so a library is rebuilt only when either changes.
 Builds start on the first CUDA tensor that reaches a kernel (or through
 ``build()``); several sources compile in parallel, one ``nvcc`` each.
 ``nvcc`` is looked up on ``PATH``, then under ``$CUDA_HOME/bin``.
+
+Two launch helpers shared by the wrappers sit at the end: the card's SM
+count (to size a split grid) and the per-device completion counters of the
+kernels that combine across blocks.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 KERNELS = ("ivf_scan", "decode_attention", "topk_merge")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -106,3 +112,31 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+_sm_counts: dict[int, int] = {}
+_counters: dict[tuple[str, int], torch.Tensor] = {}
+
+
+def sm_count(dev) -> int:
+    """Streaming multiprocessors of CUDA device ``dev`` (a host property,
+    read once: no device sync)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
+
+
+def counters(name: str, dev, n: int):
+    """``n`` int32 completion counters of kernel ``name`` on ``dev``, zero
+    between launches: allocated once per device and reused, since every
+    launch that counts leaves them at zero again.  Launches of one kernel
+    must therefore not run concurrently on two streams of one device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    t = _counters.get((name, idx))
+    if t is None or t.numel() < n:
+        size = max(n, 2 * t.numel() if t is not None else 1024)
+        t = _counters[(name, idx)] = torch.zeros(size, dtype=torch.int32,
+                                                 device=torch.device("cuda", idx))
+    return t

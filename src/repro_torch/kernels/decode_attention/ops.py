@@ -3,8 +3,11 @@
 ``q (B, H, dh)``, ``k/v (B, S, KV, dh)``, ``lengths (B,)`` -> ``(B, H, dh)``,
 the JAX package's layout.  CPU tensors go to the plain version (``ref.py``);
 CUDA tensors launch the Hopper kernel ``csrc/decode_attention.cu`` or raise.
-G = H // KV is taken as it is (no padding) and S may be any length.
-``decode_attention.launches`` counts kernel launches and
+G = H // KV is taken as it is (no padding) and S may be any length.  The
+kernel splits the cache into chunks, one block each (see the source note);
+the chunk is chosen here from S and the grid size, never from the lengths,
+which lie on the card.  ``decode_attention.launches`` counts kernel
+launches (one a call) and
 ``decode_attention.plain_calls`` counts plain-version calls.
 """
 from __future__ import annotations
@@ -17,8 +20,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 MAX_DH = 256
-TILE = 32           # cache rows per tile in the kernel (its shared-memory layout)
-SMEM_MAX = 232_448  # bytes of shared memory a Hopper block can use
+WAVES = 8        # blocks over the whole cache per SM the chunk is sized for
+CHUNK_MIN = 64   # fewest cache rows a block takes, unless forced
+CHUNK_ALIGN = 32
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -26,7 +30,7 @@ def _lib():
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -48,12 +52,39 @@ def _check(q, k_cache, v_cache, lengths):
     return B, H, dh, S, KV
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split_plan(B: int, KV: int, G: int, S: int, n_sm: int, chunk: int | None = None):
+    """(heads a block, head groups, cache rows a block, splits) for the kernel.
+
+    A block takes GB = 1, 2, 4 or 8 query heads of one kv head; the cache is
+    cut into chunks so that the grid holds about ``WAVES`` blocks per SM over
+    the whole of S (slots are mostly shorter than S, and blocks past a
+    slot's length return at once).  ``chunk`` forces the chunk size.
+    """
+    gb = min(8, 1 << (G - 1).bit_length())
+    nhg = _cdiv(G, gb)
+    if chunk is None:
+        want = _cdiv(WAVES * n_sm, B * KV * nhg)
+        chunk = max(CHUNK_MIN, _cdiv(_cdiv(S, want), CHUNK_ALIGN) * CHUNK_ALIGN)
+    elif chunk < 1:
+        raise ValueError(f"chunk={chunk} must be >= 1")
+    n_split = max(1, _cdiv(S, chunk))
+    if n_split > 65535:
+        raise ValueError(f"chunk={chunk} cuts S={S} into {n_split} splits, over 65535")
+    return gb, nhg, chunk, n_split
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     _chunk: int | None = None) -> torch.Tensor:
     """One-token attention of q against the first ``lengths[b]`` cache rows.
 
     ``lengths`` must be >= 1 (on the serving path an empty slot decodes with
     ``cache_len + 1 = 1``); the kernel returns zeros for a length of 0.
+    ``_chunk`` forces the kernel's chunk of cache rows (tests only).
     """
     B, H, dh, S, KV = _check(q, k_cache, v_cache, lengths)
     dev = q.device
@@ -66,10 +97,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if dh > MAX_DH or (dh * esize) % 16:
         raise ValueError(f"the CUDA decode_attention needs dh <= {MAX_DH} and "
                          f"dh * {esize} bytes a multiple of 16, got dh={dh}")
-    G = H // KV
-    smem = esize * 4 * TILE * dh + 4 * (2 * G * dh + G * TILE + 3 * G)
-    if smem > SMEM_MAX:
-        raise ValueError(f"G={G}, dh={dh} need {smem} bytes of shared memory, over {SMEM_MAX}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("lengths", lengths)):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -77,9 +104,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    gb, nhg, chunk, n_split = _split_plan(B, KV, H // KV, S, _build.sm_count(dev), _chunk)
+    n_bhg = B * KV * nhg
+    # per split: m[gb], l[gb], acc[gb][dh] in f32
+    part = torch.empty(n_bhg * n_split * gb * (dh + 2) if n_split > 1 else 1,
+                       dtype=torch.float32, device=dev)
     rc = _lib()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, S, KV, G, dh, int(q.dtype == torch.bfloat16),
+        out.data_ptr(), part.data_ptr(), _build.counters("decode_attention", dev, n_bhg).data_ptr(),
+        B, S, KV, H // KV, gb, dh, chunk, n_split, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1

@@ -45,8 +45,8 @@ def _ivf_inputs(rng, G, QB, d, C, L, dtype, dev):
     return [t.to(dev) for t in (q, gc, slab, valid)]
 
 
-def _check_ivf(q, gc, slab, valid, k, tol):
-    dk, ik = ivf_scan(q, gc, slab, valid, k)
+def _check_ivf(q, gc, slab, valid, k, tol, span=None):
+    dk, ik = ivf_scan(q, gc, slab, valid, k, _span=span)
     torch.cuda.synchronize()
     dr, ir = ivf_scan_ref(q, gc, slab, valid, min(k + 1, slab.shape[1]))
     nxt = dr[..., k] if dr.shape[-1] > k else torch.full(dr.shape[:-1], torch.inf, device=dr.device)
@@ -136,6 +136,91 @@ def test_decode_attention_kernel_bf16_qwen3_shape(cuda):
                                **ATTN_BF16)
 
 
+def _attn_inputs(rng, B, H, KV, dh, S, dtype, dev):
+    q = torch.as_tensor(rng.standard_normal((B, H, dh)), dtype=torch.float32, device=dev)
+    k = torch.as_tensor(rng.standard_normal((B, S, KV, dh)), dtype=torch.float32, device=dev) * 0.3
+    v = torch.as_tensor(rng.standard_normal((B, S, KV, dh)), dtype=torch.float32, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_forced_splits(cuda, chunk, dtype):
+    """Small forced chunks; lengths 1, S, and at and around chunk edges."""
+    B, H, KV, dh, S = 8, 20, 2, 64, 300   # G = 10: two head groups a kv head
+    q, k, v = _attn_inputs(np.random.default_rng(chunk), B, H, KV, dh, S, dtype, cuda)
+    lengths = torch.tensor([1, S, chunk, chunk + 1, max(1, chunk - 1), 2 * chunk, 3 * chunk + 1,
+                            S - 1], dtype=torch.int32, device=cuda).clamp(1, S)
+    out = decode_attention(q, k, v, lengths, _chunk=chunk)
+    torch.cuda.synchronize()
+    tol = F32 if dtype == torch.float32 else ATTN_BF16
+    torch.testing.assert_close(out.float(), decode_attention_ref(q, k, v, lengths).float(), **tol)
+
+
+@pytest.mark.parametrize("chunk", [None, 7])
+def test_decode_attention_kernel_length_zero_gives_zeros(cuda, chunk):
+    q, k, v = _attn_inputs(np.random.default_rng(3), 2, 4, 2, 64, 64, torch.float32, cuda)
+    lengths = torch.tensor([0, 64], dtype=torch.int32, device=cuda)
+    out = decode_attention(q, k, v, lengths, _chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out[1:], decode_attention_ref(q[1:], k[1:], v[1:], lengths[1:]),
+                               **F32)
+
+
+@pytest.mark.parametrize("chunk", [None, 32])
+def test_decode_attention_kernel_two_calls_bit_identical(cuda, chunk):
+    """The partials combine in split order, whichever block finishes last."""
+    q, k, v = _attn_inputs(np.random.default_rng(4), 8, 16, 8, 128, 2048, torch.bfloat16, cuda)
+    lengths = torch.tensor([1, 127, 128, 129, 1057, 1500, 2047, 2048], dtype=torch.int32,
+                           device=cuda)
+    outs = [decode_attention(q, k, v, lengths, _chunk=chunk).view(torch.int16) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("span,L", [(1, 32), (5, 150), (16, 500), (64, 1280)])
+def test_ivf_scan_kernel_forced_splits(cuda, span, L):
+    """Small forced spans; valid 0, 1, L and at and around split edges."""
+    rng = np.random.default_rng(span)
+    valid = [0, 1, L, span - 1, span, span + 1, 2 * span, 2 * span + 1]
+    C = G = len(valid)
+    q, _, slab, _ = _ivf_inputs(rng, G, 8, 256, C, L, torch.float32, cuda)
+    valid = torch.tensor(valid, dtype=torch.int32, device=cuda).clamp(0, L)
+    gc = torch.as_tensor(rng.permutation(C), dtype=torch.int32, device=cuda)
+    _check_ivf(q, gc, slab, valid, min(10, L), F32, span=span)
+
+
+@pytest.mark.parametrize("span", [4, 7, 32])
+def test_ivf_scan_kernel_ties_across_a_split_edge_go_to_the_lower_row(cuda, span):
+    """Identical rows on both sides of a split edge, nearer than any other
+    row (small integers: the distances are exact, so the ties are exact)."""
+    rng = np.random.default_rng(span)
+    QB, d, L, k = 8, 64, 128, 6   # span 4: 32 ranges, the most the kernel takes
+    slab = torch.as_tensor(rng.integers(3, 6, size=(2, L, d)), dtype=torch.float32, device=cuda)
+    tie = torch.arange(span - 3, span + 3, device=cuda)
+    slab[:, tie] = 1.0
+    q = torch.zeros((2, QB, d), device=cuda)
+    valid = torch.tensor([L, 0], dtype=torch.int32, device=cuda)
+    gc = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    dk, ik = ivf_scan(q, gc, slab, valid, k, _span=span)
+    torch.cuda.synchronize()
+    assert torch.equal(ik[0], tie.int().expand(QB, k))
+    assert torch.all(dk[0] == float(d))
+    assert torch.all(torch.isinf(dk[1])) and torch.all(ik[1] == -1)  # empty cluster
+
+
+@pytest.mark.parametrize("span", [None, 32])
+def test_ivf_scan_kernel_two_calls_bit_identical(cuda, span):
+    rng = np.random.default_rng(6)
+    q, gc, slab, valid = _ivf_inputs(rng, 17, 8, 1024, 24, 768, torch.float32, cuda)
+    outs = [ivf_scan(q, gc, slab, valid, 5, _span=span) for _ in range(3)]
+    torch.cuda.synchronize()
+    for d, i in outs[1:]:
+        assert torch.equal(d.view(torch.int32), outs[0][0].view(torch.int32))
+        assert torch.equal(i, outs[0][1])
+
+
 def _merge_inputs(rng, Q, k, m, id_dtype, dev):
     """Half-filled ascending scoreboards; candidates with duplicates of the
     running distances and injected NaN, -inf and +inf."""
@@ -188,11 +273,19 @@ def test_topk_merge_kernel_refuses_what_it_cannot_take(cuda):
 
 
 def test_kernels_count_launches(cuda):
+    """One launch a call, the split kernels included."""
     n0 = decode_attention.launches
     q = torch.zeros((1, 2, 64), device=cuda)
     kv = torch.zeros((1, 8, 1, 64), device=cuda)
     decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32, device=cuda))
     assert decode_attention.launches == n0 + 1
+    decode_attention(q, kv, kv, torch.full((1,), 8, dtype=torch.int32, device=cuda), _chunk=2)
+    assert decode_attention.launches == n0 + 2
+    i0 = ivf_scan.launches
+    args = _ivf_inputs(np.random.default_rng(0), 3, 8, 64, 2, 256, torch.float32, cuda)
+    ivf_scan(*args, 4, _span=16)
+    ivf_scan(*args, 4)
+    assert ivf_scan.launches == i0 + 2
     m0 = topk_merge.launches
     d = torch.zeros((3, 4), device=cuda)
     topk_merge(d, d.long(), d, d.long())
