@@ -14,7 +14,9 @@
    (``topk_merge`` does no arithmetic and is held bit for bit).  The split
    kernels also at forced small splits (cache lengths and valid counts at
    and around split edges, identical rows across an edge, length 0), and
-   each twice on one input, which must give the same bits.
+   each twice on one input, which must give the same bits.  ``topk_merge``
+   also at forced chunks of its sorting network, k past its register path
+   up to its limit, and rows of 20,000 candidates.
 4. The main path: ``Server(mode="hedra", nprobe=32)`` over ``RealBackend``,
    with qwen3-1.7b at full width and depth (28 layers, bf16, seeded random
    weights) and the hybrid retrieval engine (512 device-resident clusters),
@@ -44,7 +46,9 @@
    card could take for that work and the time of one ``torch.sum`` over as
    many bytes; ``ivf_scan`` also at a fixed shape made from SEED (17 real
    clusters, one real query a group, k 5), which the main path's varying
-   G does not give.
+   G does not give; ``topk_merge`` also at pod scale (Q 8192, k 32, m 96)
+   on random lists and on sorted ones as ``make_sharded_search`` gives
+   them, each also at the other chunk sizes of its sorting network.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero without it.
@@ -194,7 +198,7 @@ def same_bits_twice(torch, fn, what):
     a, b = fn(), fn()
     torch.cuda.synchronize()
     a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
-    bits = {4: torch.int32, 2: torch.int16}
+    bits = {8: torch.int64, 4: torch.int32, 2: torch.int16}
     same = all(torch.equal(x.view(bits[x.element_size()]), y.view(bits[y.element_size()]))
                for x, y in zip(a, b))
     log(f"  {what}: two calls {'bit-identical' if same else 'DIFFER'}")
@@ -323,10 +327,11 @@ def sync(torch, dev):
         torch.cuda.synchronize(dev)
 
 
-def check_merge(torch, ops, ref, args, what):
+def check_merge(torch, ops, ref, args, what, chunk=None):
     """Kernel against plain, bit for bit (the merge does no arithmetic);
-    returns the largest |difference| of the finite distances (0.0)."""
-    dk, ik = ops.topk_merge(*args)
+    returns the largest |difference| of the finite distances (0.0).
+    ``chunk`` forces the kernel's chunk of keys."""
+    dk, ik = ops.topk_merge(*args, _chunk=chunk)
     sync(torch, dk.device)
     dr, ir = ref.topk_merge_ref(*args)
     same = (ik.dtype == args[1].dtype and torch.equal(dk.view(torch.int32), dr.view(torch.int32))
@@ -357,17 +362,43 @@ def merge_inputs(torch, gen, Q, k, m, id_dtype, dev):
 
 
 def merge_cases(torch, merge_ops, merge_ref, dev):
-    """topk_merge over k x m x Q x id type, and the tie / +inf-slot rules."""
+    """topk_merge over k x m x Q x id type, forced chunks, k past the
+    register path up to the limit, long rows, the tie / +inf-slot rules, and
+    two calls on one input."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 6)
     errs = []
     for Q in (1, 13, 8192):
-        for k in (1, 5, 10, 24, 32):
+        for k in (1, 5, 10, 24, 32, 33, 64, 128):
             for m in (1, 3 * k, 1024):
                 for idt in (torch.int32, torch.int64):
                     args = merge_inputs(torch, gen, Q, k, m, idt, dev)
                     errs.append(check_merge(torch, merge_ops, merge_ref, args,
                                             f"Q={Q} k={k} m={m} ids={str(idt)[6:]}"))
+    # rows streamed through forced chunks of 32..256 keys (a chunk holds k)
+    n_forced = 0
+    for chunk in (32, 64, 128, 256):
+        for k in (1, 10, 32, 64, 200):
+            for m in (30, 1024):
+                if k <= chunk:
+                    args = merge_inputs(torch, gen, 13, k, m, torch.int64, dev)
+                    errs.append(check_merge(torch, merge_ops, merge_ref, args,
+                                            f"chunk={chunk} k={k} m={m}", chunk=chunk))
+                    n_forced += 1
+    # k > 256 (the list in shared memory) up to the limit, the previous
+    # kernel's largest row (2k + m = 14,528), and a row of 20,000 candidates
+    kmax = merge_ops._lib().topk_merge_max_row()
+    big = ((3, 257, 1), (5, 300, 1024), (2, 1000, 96), (2, 7000, 528), (2, kmax, 100),
+           (4, 8, 20_000))
+    for Q, k, m in big:
+        args = merge_inputs(torch, gen, Q, k, m, torch.int32, dev)
+        errs.append(check_merge(torch, merge_ops, merge_ref, args, f"Q={Q} k={k} m={m}"))
+    over = merge_inputs(torch, gen, 1, kmax + 1, 1, torch.int32, dev)
+    try:
+        merge_ops.topk_merge(*over)
+        need(False, f"topk_merge took k={kmax + 1}, over its limit")
+    except ValueError:
+        pass
     # ties go to the running entries; NaN and -inf sort last as +inf; the
     # +inf slots keep the non-finite entries' ids in position order
     run_d = torch.tensor([[0.5, 0.5, float("inf"), float("inf")]], device=dev)
@@ -380,9 +411,14 @@ def merge_cases(torch, merge_ops, merge_ref, dev):
     d, i = merge_ops.topk_merge(run_d[:, 2:], run_i[:, 2:], cand_d[:, 1:3], cand_i[:, 1:3])
     need(bool(torch.isinf(d).all()) and i.tolist() == [[3, 4]],
          f"topk_merge +inf slots: got {d.tolist()} {i.tolist()}")
-    log(f"  topk_merge: {len(errs)} cases (Q 1/13/8192, k 1..32, m 1/3k/1024, int32/int64 ids, "
-        f"half-filled boards, NaN/-inf/+inf, duplicates) equal to the plain version bit for bit; "
-        f"ties to the running entries, +inf-slot ids in position order")
+    for Q, k, m, chunk in ((POD_Q, POD_K, POD_M, None), (13, 32, 1024, 32), (5, 600, 96, None)):
+        args = merge_inputs(torch, gen, Q, k, m, torch.int64, dev)
+        same_bits_twice(torch, lambda: merge_ops.topk_merge(*args, _chunk=chunk),
+                        f"topk_merge Q={Q} k={k} m={m} chunk={chunk or 'default'}")
+    log(f"  topk_merge: {len(errs)} cases (Q 1/13/8192, k 1..128, m 1/3k/1024, int32/int64 ids, "
+        f"half-filled boards, NaN/-inf/+inf, duplicates; {n_forced} with forced chunks of "
+        f"32-256 keys; k 257..{kmax} and m 20,000) equal to the plain version bit for bit; "
+        f"k={kmax + 1} refused; ties to the running entries, +inf-slot ids in position order")
     return max(errs)
 
 
@@ -822,9 +858,21 @@ def serve_sharded(torch, dev, index, embedder, engine):
     return launches
 
 
-def time_merge(torch, dev, merge_ops, merge_ref, args, what):
-    """topk_merge, its plain version and torch.topk over the candidates
-    concatenated beforehand (timed only: it promises no order among ties)."""
+def sharded_like_input(torch, gen, Q, k, lists, dev):
+    """Rows shaped like make_sharded_search's merge: one ascending run of k
+    and ``lists`` ascending candidate lists of k, int64 ids."""
+    rd = torch.rand((Q, k), generator=gen, device=dev).sort(dim=1).values
+    cd = torch.rand((Q, lists, k), generator=gen, device=dev).sort(dim=2).values.reshape(Q, -1)
+    ri = torch.randint(0, 2**31 - 1, (Q, k), generator=gen, device=dev)
+    ci = torch.randint(0, 2**31 - 1, (Q, lists * k), generator=gen, device=dev)
+    return rd, ri, cd, ci
+
+
+def time_merge(torch, dev, merge_ops, merge_ref, args, what, chunks=()):
+    """topk_merge, its plain version, torch.topk over the candidates
+    concatenated beforehand (timed only: it promises no order among ties),
+    one torch.sum over as many bytes, and the kernel at each forced chunk
+    of ``chunks`` (checked bit for bit against the plain version first)."""
     rd, ri, cd, ci = args
     (Q, k), m, idb = rd.shape, cd.shape[1], ri.element_size()
     # every distance read once, the k selected ids read once, k pairs written
@@ -834,9 +882,17 @@ def time_merge(torch, dev, merge_ops, merge_ref, args, what):
     plain = time_ms(torch, dev, lambda: merge_ref.topk_merge_ref(rd, ri, cd, ci), iters=50)
     cat = torch.cat([rd, cd], dim=1)
     lib = time_ms(torch, dev, lambda: torch.topk(cat, k, dim=1, largest=False), iters=50)
+    floor = read_floor_ms(torch, dev, n_bytes)
+    var = []
+    for chunk in chunks:
+        check_merge(torch, merge_ops, merge_ref, args, f"{what} chunk={chunk}", chunk=chunk)
+        c_ms = time_ms(torch, dev, lambda: merge_ops.topk_merge(rd, ri, cd, ci, _chunk=chunk),
+                       iters=50)
+        var.append(f", chunk={chunk} {c_ms:.4f} ms")
     log(f"  topk_merge {what} Q={Q} k={k} m={m} ids {str(ri.dtype)[6:]}: {n_bytes} bytes; "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.topk {lib:.4f} ms, "
-        f"bound {b_ms:.6f} ms ({b_by})")
+        f"kernel {ms:.4f} ms (default chunk){''.join(var)}, plain {plain:.4f} ms, "
+        f"torch.topk {lib:.4f} ms, bound {b_ms:.6f} ms ({b_by}); one torch.sum over as many "
+        f"bytes {floor:.4f} ms")
     return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
 
@@ -951,11 +1007,18 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
         f"launches): {step_ms:.3f} ms; attention kernels {n_layers * attn_ms:.3f} ms of it "
         f"({100 * n_layers * attn_ms / step_ms:.1f}%)")
 
-    merge = time_merge(torch, dev, merge_ops, merge_ref, merge_in, "sharded-search input")
+    # beside the wrapper's chunk, the network's other choices: at the
+    # sharded input (16 rows: one 64-key chunk holds a row) K'-key chunks
+    # of 32; at pod scale (K'-key chunks of 32) 64 keys, and 128 (the row)
+    merge = time_merge(torch, dev, merge_ops, merge_ref, merge_in, "sharded-search input", (32,))
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
     time_merge(torch, dev, merge_ops, merge_ref,
-               merge_inputs(torch, gen, POD_Q, POD_K, POD_M, torch.int64, dev), "pod scale")
+               merge_inputs(torch, gen, POD_Q, POD_K, POD_M, torch.int64, dev), "pod scale",
+               (64, 128))
+    time_merge(torch, dev, merge_ops, merge_ref,
+               sharded_like_input(torch, gen, POD_Q, POD_K, POD_M // POD_K, dev),
+               "pod scale, sorted run + 3 sorted lists", (64, 128))
     return {
         "topk_merge": merge,
         "ivf_scan": ivf,

@@ -5,6 +5,10 @@
 to the plain version (``ref.py``); CUDA tensors launch the Hopper kernel
 ``csrc/topk_merge.cu`` or raise.  ``topk_merge.launches`` counts kernel
 launches and ``topk_merge.plain_calls`` counts plain-version calls.
+
+The kernel's register path sorts a row in chunks of keys and merges each
+into a running list; the chunk is chosen here (``_chunk_plan``) from Q, k,
+m and the SM count, and the private ``_chunk=`` forces it (tests only).
 """
 from __future__ import annotations
 
@@ -16,13 +20,37 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.topk_merge.ref import topk_merge_ref
 
 _IDS = (torch.int32, torch.int64)
+# chunks of keys the kernel's register path takes (32 x 1..8 keys a lane)
+_CHUNKS = (32, 64, 128, 256)
+WARPS = 4  # rows a block of the register path (csrc/topk_merge.cu)
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _chunk_plan(Q: int, k: int, m: int, n_sm: int) -> int:
+    """Keys a chunk of the kernel's network (k + m keys a row; the kernel
+    ignores it for k > 256, where its list lies in shared memory).
+
+    With at most one block an SM, no other warp hides a row's chain of
+    dependent steps, so the shortest chain wins: the smallest chunk that
+    holds the row, up to 256 (one 64-key sort of 21 steps at the sharded
+    search's k 10 + m 30).  With more rows, issue slots bind, so the fewest
+    compare-exchanges win: chunks of K' = the next power of two >= k, at
+    least 32, merged into a list of K' (4 chunks of 32 at pod scale).
+    """
+    kp = max(32, _pow2(k))
+    if Q <= WARPS * n_sm:
+        return max(kp, min(_CHUNKS[-1], _pow2(k + m)))
+    return kp
 
 
 def _lib():
     lib = _build.load("topk_merge")
     fn = lib.topk_merge_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.topk_merge_max_row.argtypes = []
         lib.topk_merge_max_row.restype = ctypes.c_int
@@ -50,10 +78,12 @@ def _check(run_d, run_i, cand_d, cand_i):
 
 
 def topk_merge(run_d: torch.Tensor, run_i: torch.Tensor,
-               cand_d: torch.Tensor, cand_i: torch.Tensor):
+               cand_d: torch.Tensor, cand_i: torch.Tensor, *, _chunk: int | None = None):
     """Merge each row's running top-k with ``m`` candidates into a new top-k.
 
     See ``ref.py`` for the semantics and ``csrc/topk_merge.cu`` for the kernel.
+    ``_chunk`` forces the keys a chunk of the kernel's network holds, one of
+    32, 64, 128 or 256 and at least k (tests only).
     """
     Q, k, m = _check(run_d, run_i, cand_d, cand_i)
     dev = run_d.device
@@ -63,9 +93,15 @@ def topk_merge(run_d: torch.Tensor, run_i: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"topk_merge runs on cpu or cuda tensors, not {dev.type}")
     lib = _lib()
-    nmax = lib.topk_merge_max_row()
-    if 2 * k + m > nmax:
-        raise ValueError(f"the CUDA topk_merge takes 2k + m <= {nmax} a row, got {2 * k + m}")
+    kmax = lib.topk_merge_max_row()
+    if k > kmax:
+        raise ValueError(f"the CUDA topk_merge keeps k <= {kmax}, got {k}")
+    if k + m > 2**30:  # positions, and the chunk loop past them, stay ints
+        raise ValueError(f"the CUDA topk_merge takes k + m <= 2**30 entries a row, got {k + m}")
+    if _chunk is None:
+        _chunk = _chunk_plan(Q, k, m, _build.sm_count(dev))
+    elif _chunk not in _CHUNKS or _chunk < k:
+        raise ValueError(f"_chunk={_chunk} must be one of {_CHUNKS} and >= k={k}")
     for name, t in (("run_d", run_d), ("run_i", run_i), ("cand_d", cand_d), ("cand_i", cand_i)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -75,7 +111,7 @@ def topk_merge(run_d: torch.Tensor, run_i: torch.Tensor,
         return out_d, out_i
     rc = lib.topk_merge_launch(
         run_d.data_ptr(), run_i.data_ptr(), cand_d.data_ptr(), cand_i.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), Q, k, m, int(run_i.dtype == torch.int64),
+        out_d.data_ptr(), out_i.data_ptr(), Q, k, m, _chunk, int(run_i.dtype == torch.int64),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "topk_merge")
     topk_merge.launches += 1

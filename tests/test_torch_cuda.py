@@ -236,17 +236,49 @@ def _merge_inputs(rng, Q, k, m, id_dtype, dev):
     return [torch.as_tensor(a).to(dev) for a in (rd, ri.astype(id_dtype), cd, ci.astype(id_dtype))]
 
 
-@pytest.mark.parametrize("Q", [1, 13, 8192])
-@pytest.mark.parametrize("k,m", [(1, 1), (5, 15), (10, 1024), (24, 3), (32, 96)])
-@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
-def test_topk_merge_kernel_equals_plain(cuda, Q, k, m, id_dtype):
-    """No arithmetic: distances and ids equal the plain version bit for bit."""
-    args = _merge_inputs(np.random.default_rng(Q + k + m), Q, k, m, id_dtype, cuda)
-    dk, ik = topk_merge(*args)
+def _assert_merge_bits(args, chunk=None):
+    dk, ik = topk_merge(*args, _chunk=chunk)
     torch.cuda.synchronize()
     dr, ir = topk_merge_ref(*args)
     assert ik.dtype == args[1].dtype
-    assert torch.equal(dk, dr) and torch.equal(ik, ir)
+    assert torch.equal(dk.view(torch.int32), dr.view(torch.int32)) and torch.equal(ik, ir)
+
+
+@pytest.mark.parametrize("Q", [1, 13, 8192])
+@pytest.mark.parametrize("k,m", [(1, 1), (5, 15), (10, 1024), (24, 3), (32, 96),
+                                 (33, 1), (64, 192), (128, 1024)])
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
+def test_topk_merge_kernel_equals_plain(cuda, Q, k, m, id_dtype):
+    """No arithmetic: distances and ids equal the plain version bit for bit."""
+    _assert_merge_bits(_merge_inputs(np.random.default_rng(Q + k + m), Q, k, m, id_dtype, cuda))
+
+
+@pytest.mark.parametrize("chunk,k,m", [
+    (chunk, k, m) for chunk in (32, 64, 128, 256)
+    for k, m in ((1, 40), (10, 30), (32, 96), (32, 1024), (64, 300), (200, 57)) if k <= chunk])
+def test_topk_merge_kernel_forced_chunks(cuda, chunk, k, m):
+    """Rows streamed through chunks of 32..256 keys and merged (chunk >= k)."""
+    _assert_merge_bits(_merge_inputs(np.random.default_rng(chunk + k + m), 13, k, m, np.int64,
+                                     cuda), chunk)
+
+
+@pytest.mark.parametrize("Q,k,m", [(3, 257, 1), (5, 300, 1024), (2, 1000, 96),
+                                   (2, 7000, 528), (2, 8192, 100), (4, 8, 20_000)])
+def test_topk_merge_kernel_large_k_and_long_rows(cuda, Q, k, m):
+    """k > 256 (the list in shared memory) up to the limit k = 8192, the
+    previous kernel's largest row (2k + m = 14,528), and m = 20,000."""
+    _assert_merge_bits(_merge_inputs(np.random.default_rng(k + m), Q, k, m, np.int32, cuda))
+
+
+@pytest.mark.parametrize("k,m,chunk", [(10, 30, None), (32, 96, None), (32, 1024, 32),
+                                       (600, 96, None)])
+def test_topk_merge_kernel_two_calls_bit_identical(cuda, k, m, chunk):
+    args = _merge_inputs(np.random.default_rng(9), 64, k, m, np.int64, cuda)
+    outs = [topk_merge(*args, _chunk=chunk) for _ in range(3)]
+    torch.cuda.synchronize()
+    for d, i in outs[1:]:
+        assert torch.equal(d.view(torch.int32), outs[0][0].view(torch.int32))
+        assert torch.equal(i, outs[0][1])
 
 
 def test_topk_merge_kernel_ties_go_to_run_and_inf_slots_keep_ids(cuda):
@@ -263,9 +295,13 @@ def test_topk_merge_kernel_ties_go_to_run_and_inf_slots_keep_ids(cuda):
 def test_topk_merge_kernel_refuses_what_it_cannot_take(cuda):
     d = torch.zeros((2, 8), device=cuda)
     i = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
-    big = torch.zeros((2, 20_000), device=cuda)
+    big = torch.zeros((2, 8193), device=cuda)  # k over topk_merge_max_row() = 8192
     with pytest.raises(ValueError):
-        topk_merge(d, i, big, big.int())
+        topk_merge(big, big.int(), d, i)
+    with pytest.raises(ValueError):
+        topk_merge(d, i, d, i, _chunk=48)
+    with pytest.raises(ValueError):
+        topk_merge(big[:, :33], big[:, :33].int(), d, i, _chunk=32)
     with pytest.raises(ValueError):
         topk_merge(d, i, d.t().contiguous().t(), i)
     with pytest.raises(TypeError):
