@@ -40,6 +40,20 @@
    every request terminates, each surviving owner's device path (its own
    slots) agrees with the host path, and ``scatter_gather_search`` over
    the surviving shards equals its one-plan oracle.
+9. The wall-clock serving stack: 12 requests drawn from the ten-class
+   heterogeneous mix (compress and pipeline among them) and 4 repeats of
+   earlier ones go through ``Server.serve_wallclock`` (producer and
+   heartbeat threads, ``DurationTape`` recording) over phase 4's params, a
+   fresh engine and a fresh 512-slot hybrid engine with replication 2,
+   with the cross-request layer (global cache, in-flight fusion, replicas
+   over 2 workers), tracing and telemetry on.  Every request terminates;
+   both kernels launch; queries fuse and replicas load; a fused plan's
+   device scan is held against the plain version; each worker's device view
+   agrees with the host path; the trace, the attribution (residual check)
+   and the Prometheus text are read; a fresh stack replays the arrival trace
+   and the tape to the same fingerprints bit for bit.  Then the launcher
+   runs on the card (``--wallclock --closed-loop 4 --replay-check``) and
+   must exit 0.
 6. Times with CUDA events (run last, on the inputs phases 4 and 7 gave the
    kernels): each kernel, its plain version and, where there is one, one
    PyTorch call computing the same function, beside the least time the
@@ -86,6 +100,18 @@ WORLD, SHARD_K, SHARD_QUERIES, RANK_TIMEOUT_S = 4, 10, 16, 300
 SHARD_WORKERS, CRASH_WORKER, CRASH_AT_US = 4, 1, 300_000.0
 # topk_merge at pod scale (phase 6): 8192 queries, k 32, 3 candidate lists.
 POD_Q, POD_K, POD_M = 8192, 32, 96
+# The wall-clock stack (phase 9): 12 requests drawn from the heterogeneous
+# mix (seed 5 draws multi-round, compress and pipeline requests) and 4 that
+# repeat an earlier one (its text and workflow) at its arrival instant,
+# served at speedup 1 (charges are measured, so virtual time runs at the
+# wall clock's rate) with the example's cross-request knobs over 2 workers.
+WC_DRAWN, WC_REPEATS, WC_RATE, WC_SEED, WC_MAX_WALL_S = 12, 4, 20.0, 5, 90.0
+WC_SERVER = dict(ret_workers=2, global_cache_size=64, dedup_threshold=0.95,
+                 replication_factor=2, tracing=True, telemetry=True,
+                 external_heartbeats=True, fault_tolerance=True)
+# ... and the launcher itself, at its default reduced config
+LAUNCHER_ARGS = ("--wallclock", "--closed-loop", "4", "--n-requests", "8", "--replay-check")
+LAUNCHER_TIMEOUT_S = 300
 
 # Tolerances of the kernel-vs-plain comparisons.
 # f32: the kernel and the plain version differ only in summation order.
@@ -858,6 +884,207 @@ def serve_sharded(torch, dev, index, embedder, engine):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the wall-clock serving stack
+# ---------------------------------------------------------------------------
+
+
+class RepeatEmbedder:
+    """A request that repeats an earlier request's text embeds as that
+    request does (``same_as``: request id -> the earlier one), so the
+    cross-request layer can fuse it or answer it from the global cache."""
+
+    def __init__(self, base, same_as):
+        self.base, self.same_as = base, dict(same_as)
+        self.dim = base.dim
+
+    def embed_query(self, request_id, round_idx):
+        return self.base.embed_query(self.same_as.get(request_id, request_id), round_idx)
+
+    def embed_partial(self, request_id, round_idx, ratio):
+        return self.base.embed_partial(self.same_as.get(request_id, request_id), round_idx, ratio)
+
+
+def wallclock_stream():
+    """The open-loop stream of phase 9 and its repeats: WC_DRAWN arrivals of
+    the heterogeneous mix; the multi-round ones first, then the earliest,
+    are each sent again (same text and workflow) at their own instant, just
+    after them.  The single producer submits in list order, so a request's
+    id is its place in the list."""
+    from repro_torch.serving.workload import MIXES
+
+    drawn = MIXES["heterogeneous"].sample(WC_DRAWN, rate_per_s=WC_RATE, seed=WC_SEED)
+    again = set(sorted(range(WC_DRAWN), key=lambda i: (drawn[i].workflow not in
+                                                      ("multistep", "irg"), i))[:WC_REPEATS])
+    stream, same_as = [], {}
+    for i, item in enumerate(drawn):
+        first = len(stream)
+        stream.append(dataclasses.replace(item, text=f"request {i}"))
+        if i in again:
+            same_as[len(stream)] = first
+            stream.append(stream[first])
+    return stream, same_as
+
+
+def wallclock_stack(dev, index, embedder, params, cfg, prompts, cost_model=None):
+    """A fresh stack for phase 9: a new engine over ``params``, a new
+    512-slot hybrid engine with replication 2, and ``build_server`` with the
+    cross-request layer, tracing and telemetry on."""
+    from repro_torch.launch.serve import build_server
+    from repro_torch.retrieval import HybridRetrievalEngine
+    from repro_torch.serving.engine import GenerationEngine
+    from repro_torch.serving.workload import MIXES
+
+    engine = GenerationEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN, eos_id=-1,
+                              device=dev)
+    hybrid = HybridRetrievalEngine(index, cache_capacity=CACHE_CAPACITY,
+                                   update_interval=CACHE_UPDATE_INTERVAL,
+                                   transit_substages=CACHE_TRANSIT, replication=2, device=dev)
+    return build_server(engine, index, embedder, hybrid, prompts, max_new=MAX_NEW,
+                        nprobe=NPROBE, cost_model=cost_model,
+                        workload=MIXES["heterogeneous"].profile(), **WC_SERVER)
+
+
+def serve_wallclock_stack(torch, dev, index, embedder, params, cfg):
+    """Phase 9: the stream of ``wallclock_stream`` through
+    ``Server.serve_wallclock`` with a ``DurationTape`` recording; the
+    checks of the run, then its replay on a fresh stack, bit for bit.
+    Returns (kernel launches of the run, the ivf_scan input of a fused
+    plan's device scan)."""
+    import collections
+    import gc
+
+    import numpy as np
+
+    import repro_torch.retrieval.hybrid as hybrid_mod
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ivf_scan import ivf_scan
+    from repro_torch.serving import ingress
+
+    gc.collect()  # phase 8's stack holds a slab and reference cycles
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    stream, same_as = wallclock_stream()
+    emb = RepeatEmbedder(embedder, same_as)
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int64)
+               for n in rng.integers(512, 1025, size=len(stream))]
+    classes = collections.Counter(it.workflow for it in stream)
+    log(f"  stream: {len(stream)} requests, {dict(sorted(classes.items()))}; requests "
+        f"{sorted(same_as)} repeat {[same_as[r] for r in sorted(same_as)]}")
+    need(classes["compress"] + classes["pipeline"] > 0, "the stream has no compress or pipeline request")
+    server = wallclock_stack(dev, index, emb, params, cfg, prompts)
+    hybrid = server.backend.hybrid
+    tape = ingress.DurationTape()
+    ingress.tape_backend(server.backend, tape, mode="record")
+    # the device scans of fused plans (group_fanout > 1): count them and
+    # keep the ivf_scan input of the last one
+    order = itertools.count()
+    ivf_rec = Recorder(hybrid_mod.ivf_scan, lambda *a: next(order))
+    fused = {"plans": 0, "device": 0, "input": None}
+    plain_search = hybrid.search_plan
+
+    def search_plan(plan, **kw):
+        fan = int(plan.group_fanout.max(initial=1))
+        n0 = ivf_scan.launches
+        out = plain_search(plan, **kw)
+        if fan > 1:
+            fused["plans"] += 1
+            if ivf_scan.launches > n0:
+                fused["device"] += 1
+                fused["input"] = ivf_rec.best
+        return out
+
+    hybrid.search_plan = search_plan
+    hybrid_mod.ivf_scan = ivf_rec
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ivf_scan.launches = 0
+        decode_attention.launches = 0
+        t0 = time.perf_counter()
+        m, trace = server.serve_wallclock(stream, speedup=1.0, max_wall_s=WC_MAX_WALL_S)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        launches = {"ivf_scan": ivf_scan.launches, "decode_attention": decode_attention.launches}
+    finally:
+        hybrid_mod.ivf_scan = ivf_rec.fn
+        hybrid.search_plan = plain_search
+    peak = torch.cuda.max_memory_allocated()
+    rep = server.crossreq_report()
+    st = hybrid.stats()
+    n_fused = rep["dedup"]["exact_subscribed"] + rep["dedup"]["near_subscribed"]
+    gc_hits = rep["global_cache"]["exact_hits"] + rep["global_cache"]["near_answers"]
+    done = collections.Counter(r.graph.name for r in server.sched.done)
+    log(f"  served {m.finished}/{len(stream)} in {wall:.2f}s wall, by class "
+        f"{dict(sorted(done.items()))}; trace rows {len(trace.rows)}; taped charges "
+        f"{len(tape.rows)}")
+    log(f"  fused queries {n_fused} (dedup {rep['dedup']}); global-cache hits {gc_hits} "
+        f"(global cache {rep['global_cache']}); global_cache_answers "
+        f"{m.global_cache_answers}; replica loads {st['replica_loads']}, replicated clusters "
+        f"{st['replicated_clusters']}, cache hits {st['hits']} misses {st['misses']}")
+    log(f"  fused plans {fused['plans']}, on the device path {fused['device']}; launches "
+        f"{launches}; max_memory_allocated={peak} bytes")
+    need(m.finished == len(stream) and not server.sched.active and not server.sched.pending,
+         f"finished {m.finished} of {len(stream)} requests")
+    for name, n in launches.items():
+        need(n > 0, f"phase 9 launched {name} no time")
+    need(n_fused > 0, "the cross-request layer fused no query")
+    need(st["replica_loads"] > 0, "no replica was loaded")
+    need(fused["input"] is not None, "no fused plan went through the device path")
+    # every worker's device view (its slots, replicas included) against the host
+    n_dev = sum(check_retrieval_against_host(torch, index, hybrid, embedder, owner=w)
+                for w in range(WC_SERVER["ret_workers"]))
+    need(n_dev > 0, "no probed cluster was resident on either worker")
+    # the observability layer
+    tr = json.loads(json.dumps(server.export_trace()))
+    spans = [e for e in tr["traceEvents"] if e.get("ph") == "X"]
+    gen_spans = sum(e["tid"] == 1 for e in spans)
+    ret_spans = sum(e["tid"] >= 10 for e in spans)
+    att = server.attribution_report(check=True)
+    prom = server.metrics_snapshot()["prometheus"]
+    log(f"  trace: {len(tr['traceEvents'])} events, {len(spans)} spans ({gen_spans} generation, "
+        f"{ret_spans} retrieval); attribution over {att['finished']} requests, max residual "
+        f"{att['max_rel_residual']:.3e}, bottleneck {att['bottleneck']}; prometheus "
+        f"{len(prom.splitlines())} lines")
+    need(gen_spans > 0 and ret_spans > 0, "the trace lacks generation or retrieval spans")
+    need(prom.strip() != "", "the Prometheus exposition is empty")
+    # the replay: a fresh stack, the same trace and charges, the same bits
+    recorded = server.fingerprints()
+    cost_model = server.backend.cluster_cost_model
+    t0 = time.perf_counter()
+    replica = wallclock_stack(dev, index, emb, params, cfg, prompts, cost_model=cost_model)
+    ingress.tape_backend(replica.backend, tape, mode="replay")
+    rm = ingress.replay_trace(replica, trace)
+    sync(torch, dev)
+    same = replica.fingerprints() == recorded
+    log(f"  replay on a fresh stack: {rm.finished} finished in {time.perf_counter() - t0:.2f}s "
+        f"wall, {tape.remaining()} charges unconsumed; fingerprints "
+        f"{'bit-identical' if same else 'DIFFER'}")
+    need(same and tape.remaining() == 0, "the replay's fingerprints differ from the recorded run's")
+    return launches, fused["input"]
+
+
+def run_launcher(tmp):
+    """The launcher on the card as a user runs it; it must exit 0 and say
+    that its replay check passed."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCHER_ARGS,
+           "--trace-out", str(tmp / "trace.json"), "--metrics-out", str(tmp / "metrics.json")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=LAUNCHER_TIMEOUT_S)
+    lines = [ln for ln in r.stdout.splitlines() if not ln.startswith("  ")]
+    log(f"  {' '.join(cmd[1:])}: exit {r.returncode} in {time.perf_counter() - t0:.1f}s; "
+        + " | ".join(lines))
+    need(r.returncode == 0, f"the launcher failed:\n{r.stderr[-3000:]}")
+    need(any(ln.startswith("replay-check ok") for ln in lines), "the launcher's replay check did not pass")
+    need((tmp / "trace.json").stat().st_size > 0 and (tmp / "metrics.json").stat().st_size > 0,
+         "the launcher wrote no trace or metrics")
+
+
 def sharded_like_input(torch, gen, Q, k, lists, dev):
     """Rows shaped like make_sharded_search's merge: one ascending run of k
     and ``lists`` ascending candidate lists of k, int64 ids."""
@@ -1125,19 +1352,40 @@ def main() -> int:
     serve_sharded(torch, dev, index, embedder, engine)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f}s")
 
+    # 9. the wall-clock serving stack ------------------------------------------
+    log("[9] wall-clock serving: serve_wallclock with the cross-request layer, tracing and "
+        "telemetry; replay; the launcher")
+    t0 = time.perf_counter()
+    wc_launches, fused_in = serve_wallclock_stack(torch, dev, index, embedder, engine.params,
+                                                  engine.cfg)
+    q, gc_ids, slab, valid, k = fused_in
+    e, n = check_ivf(torch, ivf_ops, ivf_ref, q, gc_ids, slab, valid, k, F32,
+                     f"fused-plan input G={q.shape[0]} k={k}")
+    ivf_err, ivf_ties = max(ivf_err, e), ivf_ties + n
+    out_dir = ROOT / "build" / "phase9"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    run_launcher(out_dir)
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f}s")
+
     # 6. times (last: on the inputs phases 4 and 7 gave the kernels) -------------
     log("[6] times at the paths' inputs (CUDA events, cold L2)")
     t = time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in,
                      fixed_ivf_input(torch, index, tile_len, dev))
 
+    # launches: phase 4's main path and phase 9's wall-clock run, each read
+    # with the counts set to 0 just before it; topk_merge's from phase 7
+    log(f"  launches: phase 4 {launches}, phase 9 {wc_launches}, phase 7 topk_merge "
+        f"{merge_launches}")
     kernels = [
         {"name": "ivf_scan", "route": "cuda", "source": "src/repro_torch/csrc/ivf_scan.cu",
          "replaces": "src/repro/kernels/ivf_scan/ivf_scan.py:111",
-         "launches": launches["ivf_scan"], "max_abs_err": ivf_err, **t["ivf_scan"]},
+         "launches": launches["ivf_scan"] + wc_launches["ivf_scan"], "max_abs_err": ivf_err,
+         **t["ivf_scan"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/decode_attention.py:80",
-         "launches": launches["decode_attention"], "max_abs_err": attn_err,
+         "launches": launches["decode_attention"] + wc_launches["decode_attention"],
+         "max_abs_err": attn_err,
          **t["decode_attention"]},
         {"name": "topk_merge", "route": "cuda", "source": "src/repro_torch/csrc/topk_merge.cu",
          "replaces": "src/repro/kernels/topk_merge/topk_merge.py:50",

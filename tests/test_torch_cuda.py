@@ -326,3 +326,20 @@ def test_kernels_count_launches(cuda):
     d = torch.zeros((3, 4), device=cuda)
     topk_merge(d, d.long(), d, d.long())
     assert topk_merge.launches == m0 + 1
+
+
+def test_launcher_wallclock_replay_check_on_the_card(cuda, tmp_path, capsys):
+    """The launcher's wall-clock path on the card: the decode kernel
+    launches, and the replay on a fresh stack is bit-identical."""
+    from repro_torch.launch import serve
+
+    a0 = decode_attention.launches
+    m = serve.main(["--wallclock", "--closed-loop", "2", "--n-requests", "4", "--max-new", "6",
+                    "--replay-check", "--cache-update-interval", "1", "--cache-transit", "0",
+                    "--trace-out", str(tmp_path / "trace.json"),
+                    "--metrics-out", str(tmp_path / "metrics.json")])
+    out = capsys.readouterr().out
+    assert m.finished == 4
+    assert "replay-check ok" in out and "on cuda" in out
+    assert decode_attention.launches > a0
+    assert (tmp_path / "trace.json").stat().st_size > 0

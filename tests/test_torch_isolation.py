@@ -22,9 +22,13 @@ COPIES = sorted(
                                 "speculation", "substage", "transforms", "stages",
                                 "wavefront", "backends")]
     + [f"retrieval/{m}.py" for m in ("plan", "hotcache", "synthetic", "lexical")]
-    + [f"serving/{m}.py" for m in ("dispatch", "faults", "lifecycle", "workload")]
+    + [f"serving/{m}.py" for m in ("dispatch", "faults", "lifecycle", "workload", "ingress")]
+    + [f"obs/{m}.py" for m in ("__init__", "trace", "attribution", "registry")]
+    + [f"crossreq/{m}.py" for m in ("__init__", "popularity", "globalcache", "dedup")]
     + ["server.py", "workflows.py"]
 )
+# named by a docstring only; its port is ROADMAP.md queue A item 8
+NOT_PORTED = {"repro_torch.analysis.lint"}
 
 
 def _imports(path: Path):
@@ -71,12 +75,48 @@ def test_distributed_numpy_parts_equal_their_sources(name):
     assert _segment(PORT / rel, name) == _rename(_segment(SRC / "repro" / rel, name))
 
 
+def test_block_saliency_equals_its_source():
+    """``training/compression.py`` keeps only the serving host path's
+    ``block_saliency``, a copy of the JAX package's function."""
+    rel = Path("training") / "compression.py"
+    seg = _rename(_segment(SRC / "repro" / rel, "block_saliency"))
+    assert _segment(PORT / rel, "block_saliency") == seg
+
+
+def _module_exists(name: str) -> bool:
+    path = SRC.joinpath(*name.split("."))
+    return path.with_suffix(".py").is_file() or (path / "__init__.py").is_file()
+
+
+def test_every_port_import_target_exists():
+    """Every ``repro_torch.*`` module an import of the port names, lazy
+    imports inside functions included, exists in the port."""
+    missing = []
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                # ``from pkg import mod`` names a module when mod is one
+                names = [node.module] + [f"{node.module}.{a.name}" for a in node.names
+                                         if _module_exists(f"{node.module}.{a.name}")]
+            else:
+                continue
+            missing += [f"{path.relative_to(PORT)}: {n}" for n in names
+                        if n.split(".")[0] == "repro_torch" and not _module_exists(n)
+                        and n not in NOT_PORTED]
+    assert not missing, missing
+
+
 def test_port_runs_with_jax_and_repro_blocked(tmp_path):
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch\n"
+        "import repro_torch.obs, repro_torch.crossreq, repro_torch.serving.ingress\n"
+        "import repro_torch.examples.serve_rag_e2e\n"
         "from repro_torch.launch import serve\n"
         "from repro_torch.kernels.ivf_scan import ivf_scan\n"
         "m = serve.main(['--device', 'cpu', '--n-requests', '4', '--max-new', '4',\n"
@@ -98,6 +138,7 @@ def test_entry_points_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device='cuda' is valid here")
     from repro_torch.configs import get_config
+    from repro_torch.examples import serve_rag_e2e
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.retrieval import HybridRetrievalEngine, IVFIndex
@@ -112,6 +153,8 @@ def test_entry_points_refuse_cuda_without_a_card():
                  lambda: HybridRetrievalEngine(index, cache_capacity=2),
                  lambda: IVFIndex.build(docs, 4, iters=2),
                  lambda: lm.init_params(cfg),
-                 lambda: serve.main(["--n-requests", "1"])):
+                 lambda: serve.main(["--n-requests", "1"]),
+                 lambda: serve.main(["--wallclock", "--replay-check", "--n-requests", "1"]),
+                 lambda: serve_rag_e2e.main(["--smoke", "--crossreq"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
