@@ -16,7 +16,9 @@
    and around split edges, identical rows across an edge, length 0), and
    each twice on one input, which must give the same bits.  ``topk_merge``
    also at forced chunks of its sorting network, k past its register path
-   up to its limit, and rows of 20,000 candidates.
+   up to its limit, and rows of 20,000 candidates.  ``decode_attention``
+   also in bf16 at every other family's full-width decode shape (dh 96,
+   160, 64, 128 and 256, recurrentgemma's over its 2048-row ring).
 4. The main path: ``Server(mode="hedra", nprobe=32)`` over ``RealBackend``,
    with qwen3-1.7b at full width and depth (28 layers, bf16, seeded random
    weights) and the hybrid retrieval engine (512 device-resident clusters),
@@ -54,15 +56,30 @@
    and the tape to the same fingerprints bit for bit.  Then the launcher
    runs on the card (``--wallclock --closed-loop 4 --replay-check``) and
    must exit 0.
-6. Times with CUDA events (run last, on the inputs phases 4 and 7 gave the
-   kernels): each kernel, its plain version and, where there is one, one
-   PyTorch call computing the same function, beside the least time the
+6. Times with CUDA events (run after phase 9, on the inputs phases 4 and 7
+   gave the kernels): each kernel, its plain version and, where there is
+   one, one PyTorch call computing the same function, beside the least time the
    card could take for that work and the time of one ``torch.sum`` over as
    many bytes; ``ivf_scan`` also at a fixed shape made from SEED (17 real
    clusters, one real query a group, k 5), which the main path's varying
    G does not give; ``topk_merge`` also at pod scale (Q 8192, k 32, m 96)
    on random lists and on sorted ones as ``make_sharded_search`` gives
    them, each also at the other chunk sizes of its sorting network.
+10. deepseek-v2-lite-16b (MLA, 64 experts top-6 + 2 shared) at full width
+   and depth (27 layers, 15.71 B params, bf16, seeded random weights) served
+   as phase 4 serves qwen3, over phase 4's index and a fresh hybrid engine
+   (phases 4-9's stacks freed first); ``ivf_scan`` must launch (MLA decodes
+   in latent space, without ``decode_attention``).  One decode step timed,
+   peak memory printed; decode against prefill on 2 full-width f32 layers
+   (the dense one and one MoE layer, capacity past any drop).
+11. The rest of the zoo at full width, one model at a time, each cut to its
+   first segment period in f32: decode against prefill for phi3, stablelm,
+   qwen1.5 (qkv bias), llama4-scout (MoE), recurrentgemma (RG-LRU, RG-LRU,
+   local attention; prompts of 1000 and 2100 tokens, either side of its
+   2048-row ring), rwkv6, paligemma (256 prefix embeddings) and whisper
+   (2 encoder layers over 1500 frames, cross-attention).  Then qwen3-1.7b at
+   full depth in bf16 with the int8 KV cache against the bf16 cache: cosine
+   > 0.999 at each of 8 decode steps.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero without it.
@@ -109,6 +126,22 @@ WC_DRAWN, WC_REPEATS, WC_RATE, WC_SEED, WC_MAX_WALL_S = 12, 4, 20.0, 5, 90.0
 WC_SERVER = dict(ret_workers=2, global_cache_size=64, dedup_threshold=0.95,
                  replication_factor=2, tracing=True, telemetry=True,
                  external_heartbeats=True, fault_tolerance=True)
+# The rest of the zoo: phase 10 serves the MLA + MoE model at full width and
+# depth as phase 4 serves qwen3; phase 11 checks each other family at full
+# width cut to its first segment period (arch, layers, prompt lengths: for
+# recurrentgemma below and above its 2048-row window, neither a multiple).
+MOE_ARCH = "deepseek-v2-lite-16b"
+ZOO = (("phi3-mini-3.8b", 2, (300,)), ("stablelm-12b", 2, (300,)), ("qwen1.5-110b", 2, (300,)),
+       ("llama4-scout-17b-a16e", 2, (300,)), ("recurrentgemma-2b", 3, (1000, 2100)),
+       ("rwkv6-1.6b", 2, (300,)), ("paligemma-3b", 2, (300,)), ("whisper-medium", 2, (300,)))
+# qwen3's int8 KV cache against its bf16 cache: batch, prompt, decode steps
+INT8_RUN = (4, 512, 8)
+# decode_attention at each family's full-width decode shape (phase 3, bf16):
+# (arch, H, KV, dh, cache rows); recurrentgemma's cache is its ring
+ATTN_SHAPES = (("phi3-mini-3.8b", 32, 32, 96, 2048), ("stablelm-12b", 32, 8, 160, 2048),
+               ("recurrentgemma-2b", 10, 1, 256, 2048), ("paligemma-3b", 8, 1, 256, 2048),
+               ("whisper-medium", 16, 16, 64, 2048), ("llama4-scout-17b-a16e", 40, 8, 128, 2048),
+               ("qwen1.5-110b", 64, 8, 128, 2048))
 # ... and the launcher itself, at its default reduced config
 LAUNCHER_ARGS = ("--wallclock", "--closed-loop", "4", "--n-requests", "8", "--replay-check")
 LAUNCHER_TIMEOUT_S = 300
@@ -321,6 +354,12 @@ def attn_cases(torch, attn_ops, attn_ref, dev):
         lengths[0] = 1
         errs.append(check_attn(torch, attn_ops, attn_ref, q, k, v, lengths, F32,
                                f"B={B} H={H} KV={KV} dh={dh} S={S} f32"))
+    # each family's full-width decode shape in bf16, B 8, lengths 1 to S
+    for arch, H, KV, dh, S in ATTN_SHAPES:
+        q, k, v = make(8, H, KV, dh, S, torch.bfloat16)
+        lengths = torch.tensor([1, 2, 31, 33, 517, 1024, S - 1, S], dtype=torch.int32, device=dev)
+        errs.append(check_attn(torch, attn_ops, attn_ref, q, k, v, lengths, ATTN_BF16,
+                               f"{arch} B=8 H={H} KV={KV} dh={dh} S={S} bf16"))
     # forced small chunks (the cache over many blocks): lengths 1, S and at
     # and around chunk edges; G = 10, two head groups a kv head
     B, H, KV, dh, S = 8, 20, 2, 64, 300
@@ -470,7 +509,11 @@ class Recorder:
         return self.fn(*args)
 
 
-def serve_main_path(torch, dev, index, embedder):
+def serve_main_path(torch, dev, index, embedder, arch=ARCH,
+                    kernels=("ivf_scan", "decode_attention")):
+    """``arch`` at full width and depth (bf16, seeded random weights) served
+    through ``Server`` + ``RealBackend``; each kernel of ``kernels`` must
+    launch (MLA decodes without ``decode_attention``)."""
     import numpy as np
 
     import repro_torch.models.layers as layers_mod
@@ -484,14 +527,15 @@ def serve_main_path(torch, dev, index, embedder):
     from repro_torch.retrieval import HybridRetrievalEngine
     from repro_torch.serving.engine import GenerationEngine
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, gen, device=dev)
-    torch.cuda.synchronize()
-    log(f"  {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
-        f"{cfg.dtype}, init {time.perf_counter() - t0:.1f}s")
+    sync(torch, dev)
+    log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, {cfg.param_count()} params by param_count() "
+        f"({2 * cfg.param_count()} bytes in bf16), init {time.perf_counter() - t0:.1f}s")
     engine = GenerationEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN, eos_id=-1,
                               device=dev)
     hybrid = HybridRetrievalEngine(index, cache_capacity=CACHE_CAPACITY,
@@ -518,14 +562,15 @@ def serve_main_path(torch, dev, index, embedder):
 
     engine.step = step
     try:
-        torch.cuda.reset_peak_memory_stats()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         ivf_scan.launches = 0
         decode_attention.launches = 0
         t0 = time.perf_counter()
         for i, name in enumerate(names):
             server.add_request(f"request {i}", workflows.build(name), arrival_us=i * ARRIVAL_GAP_US)
         m = server.run()
-        torch.cuda.synchronize()
+        sync(torch, dev)
         wall = time.perf_counter() - t0
         launches = {"ivf_scan": ivf_scan.launches, "decode_attention": decode_attention.launches}
     finally:
@@ -536,10 +581,11 @@ def serve_main_path(torch, dev, index, embedder):
         f"substages_ret={m.summary().get('substages_ret')} "
         f"substages_with_device_probes={launches['ivf_scan']} cache_hits={st['hits']} "
         f"cache_misses={st['misses']} uploads={st['uploads']}")
-    log(f"  launches: {launches}  max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else "not measured"
+    log(f"  launches: {launches}  max_memory_allocated={peak} bytes")
     need(m.finished == N_REQUESTS, f"finished {m.finished} of {N_REQUESTS} requests")
-    for name, n in launches.items():
-        need(n > 0, f"the main path launched {name} no time")
+    for name in kernels:
+        need(launches[name] > 0, f"the main path launched {name} no time")
     need(len(generated) > 0 and all(0 <= t < cfg.vocab_size for t in generated),
          "generated tokens must lie in the vocabulary")
     return launches, ivf_rec.best, attn_rec.best, hybrid, engine
@@ -579,32 +625,162 @@ def check_retrieval_against_host(torch, index, hybrid, embedder, owner=None):
     return n_dev
 
 
+def cut_depth(base, n_layers, **overrides):
+    """``base`` at full width with only its first ``n_layers`` decoder layers
+    (and as many encoder layers), e.g. one segment period."""
+    def first(segments, n):
+        out = []
+        for seg in segments:
+            if n > 0:
+                out.append(dataclasses.replace(seg, repeat=min(seg.repeat, n)))
+                n -= out[-1].repeat
+        return tuple(out)
+
+    dec, enc = first(base.segments, n_layers), first(base.encoder_segments, n_layers)
+    return dataclasses.replace(base, n_layers=sum(s.repeat for s in dec), segments=dec,
+                               encoder_segments=enc, n_encoder_layers=sum(s.repeat for s in enc),
+                               **overrides)
+
+
+def model_extras(torch, cfg, B, rng, dev):
+    """Seeded prefix embeddings (VLM) and encoder frames (enc-dec) for ``cfg``."""
+    out = {}
+    if cfg.n_prefix_embeds:
+        out["prefix_embeds"] = rng.standard_normal((B, cfg.n_prefix_embeds, cfg.d_model))
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = rng.standard_normal((B, cfg.encoder_seq, cfg.d_model))
+    return {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in out.items()}
+
+
+def decode_vs_prefill(torch, dev, cfg, B, S, seed, what):
+    """The logits of one decode step (the decode kernel on attention caches,
+    the recurrences on recurrent states) equal prefill's over the same
+    S + 1 tokens (plain blocked attention, chunked/scanned recurrences)."""
+    import numpy as np
+
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = lm.init_params(cfg, gen, device=dev)
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(B, S + 1)), device=dev)
+    kw = model_extras(torch, cfg, B, rng, dev)
+    max_len = S + 1 + (cfg.n_prefix_embeds if "prefix_embeds" in kw else 0)
+    want, _ = lm.prefill(params, cfg, toks, max_len=max_len, **kw)
+    _, state = lm.prefill(params, cfg, toks[:, :S], max_len=max_len, **kw)
+    got, _ = lm.decode_step(params, cfg, toks[:, S].to(torch.int32), state)
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **MODEL_F32)) and bool(torch.isfinite(got).all())
+    log(f"  {what}: decode vs prefill logits ({B}x{cfg.vocab_size}, S={S}, {cfg.n_layers} layers "
+        f"{cfg.dtype}): max_abs_err={err:.3e} (rtol={MODEL_F32['rtol']}, "
+        f"atol={MODEL_F32['atol']}) {'ok' if ok else 'FAIL'}")
+    need(ok, f"{what}: decode logits disagree with prefill logits")
+
+
 def check_decode_against_prefill(torch, dev):
     """Full-width qwen3-1.7b cut to 2 layers, f32: the logits of one decode
     step (the decode kernel) equal prefill's over the same tokens (plain
     blocked attention)."""
-    import numpy as np
+    from repro_torch.configs import get_config
 
+    decode_vs_prefill(torch, dev, cut_depth(get_config(ARCH), 2, dtype="float32"), 4, 300,
+                      SEED + 4, ARCH)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the model zoo
+# ---------------------------------------------------------------------------
+
+
+def no_drop(cfg):
+    """MoE capacity that no routing can exceed (C >= tokens): capacity
+    depends on the batch shape, so without it one decode token and a
+    prefill of S + 1 would drop differently (the JAX reduced() raises the
+    factor to 8 for the same reason)."""
+    if not cfg.n_experts:
+        return {}
+    return {"capacity_factor": cfg.n_experts / cfg.moe_top_k}
+
+
+def serve_moe_path(torch, dev, index, embedder):
+    """Phase 10: deepseek-v2-lite-16b (MLA, 64 experts top-6 + 2 shared) at
+    full width and depth, served as phase 4 serves qwen3; one decode step
+    timed; then decode against prefill on 2 full-width f32 layers."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
-    base = get_config(ARCH)
-    cfg = dataclasses.replace(base, n_layers=2, dtype="float32",
-                              segments=(dataclasses.replace(base.segments[0], repeat=2),))
+    launches, _, _, hybrid, engine = serve_main_path(torch, dev, index, embedder, arch=MOE_ARCH,
+                                                     kernels=("ivf_scan",))
+    if dev.type == "cuda":
+        step_ms = time_ms(torch, dev, lambda: lm.decode_step(engine.params, engine.cfg,
+                                                             engine._last_tokens, engine.state),
+                          iters=5, warmup=1)
+        log(f"  {MOE_ARCH} decode step B={engine.max_batch} ({engine.cfg.n_layers} layers, "
+            f"max_len {engine.max_len}): {step_ms:.3f} ms; peak max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+    need(check_retrieval_against_host(torch, index, hybrid, embedder) > 0,
+         "phase 10: no probed cluster was resident for the retrieval check")
+    del engine, hybrid
+    free(torch, dev)
+    base = get_config(MOE_ARCH)
+    cfg = cut_depth(base, 2, dtype="float32", **no_drop(base))
+    decode_vs_prefill(torch, dev, cfg, 4, 300, SEED + 11, f"{MOE_ARCH} (dense layer 0 + 1 MoE layer)")
+    return launches
+
+
+def zoo_checks(torch, dev):
+    """Phase 11: each family of ZOO at full width, cut to its first segment
+    period (f32), decode against prefill; then qwen3-1.7b at full depth in
+    bf16 with the int8 KV cache against the bf16 cache."""
+    from repro_torch.configs import get_config
+
+    for arch, n_layers, lengths in ZOO:
+        base = get_config(arch)
+        cfg = cut_depth(base, n_layers, dtype="float32", **no_drop(base))
+        for S in lengths:
+            decode_vs_prefill(torch, dev, cfg, 4 if S <= 512 else 2, S, SEED + 12, arch)
+        free(torch, dev)
+    int8_cosine(torch, dev, get_config(ARCH), *INT8_RUN)
+
+
+def int8_cosine(torch, dev, cfg, B, S, steps):
+    """Prefill + ``steps`` teacher-forced decode steps with the int8 KV cache
+    and with the model-dtype cache, one set of weights: cosine > 0.999 at
+    every step (the JAX package's criterion), argmax agreement printed."""
+    import numpy as np
+
+    from repro_torch.models import lm
+
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 4)
+    gen.manual_seed(SEED + 13)
     params = lm.init_params(cfg, gen, device=dev)
-    rng = np.random.default_rng(SEED + 4)
-    B, S = 4, 300
-    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(B, S + 1)), device=dev)
-    want, _ = lm.prefill(params, cfg, toks, max_len=S + 1)
-    _, state = lm.prefill(params, cfg, toks[:, :S], max_len=S + 1)
-    got, _ = lm.decode_step(params, cfg, toks[:, S].to(torch.int32), state)
-    err = float((got - want).abs().max())
-    ok = bool(torch.allclose(got, want, **MODEL_F32)) and bool(torch.isfinite(got).all())
-    log(f"  decode vs prefill logits ({B}x{cfg.vocab_size}, 2 layers f32): max_abs_err={err:.3e} "
-        f"(rtol={MODEL_F32['rtol']}, atol={MODEL_F32['atol']}) {'ok' if ok else 'FAIL'}")
-    need(ok, "decode logits disagree with prefill logits")
+    rng = np.random.default_rng(SEED + 13)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(B, S + steps)), device=dev)
+    lf, sf = lm.prefill(params, cfg, toks[:, :S], max_len=S + steps)
+    lq, sq = lm.prefill(params, cfg8, toks[:, :S], max_len=S + steps)
+    need(sq["segments"][0]["mixer"]["k"].dtype == torch.int8, "the int8 cache is not int8")
+    cosines, agree = [], 0
+    for i in range(S, S + steps):
+        lf, sf = lm.decode_step(params, cfg, toks[:, i].to(torch.int32), sf)
+        lq, sq = lm.decode_step(params, cfg8, toks[:, i].to(torch.int32), sq)
+        cosines.append(float((lf * lq).sum() / (lf.norm() * lq.norm())))
+        agree += int((lf.argmax(-1) == lq.argmax(-1)).sum())
+    log(f"  {cfg.name} ({cfg.n_layers} layers {cfg.dtype}) int8 KV cache vs {cfg.dtype} cache, "
+        f"B={B} S={S}, {steps} decode steps: cosine per step "
+        f"{[round(c, 6) for c in cosines]}; argmax agrees {agree}/{B * steps}")
+    need(all(c > 0.999 for c in cosines), "int8 KV cache: a step's cosine is <= 0.999")
+    del params, sf, sq
+    free(torch, dev)
+
+
+def free(torch, dev):
+    import gc
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -952,7 +1128,6 @@ def serve_wallclock_stack(torch, dev, index, embedder, params, cfg):
     Returns (kernel launches of the run, the ivf_scan input of a fused
     plan's device scan)."""
     import collections
-    import gc
 
     import numpy as np
 
@@ -961,9 +1136,7 @@ def serve_wallclock_stack(torch, dev, index, embedder, params, cfg):
     from repro_torch.kernels.ivf_scan import ivf_scan
     from repro_torch.serving import ingress
 
-    gc.collect()  # phase 8's stack holds a slab and reference cycles
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    free(torch, dev)  # phase 8's stack holds a slab and reference cycles
     stream, same_as = wallclock_stream()
     emb = RepeatEmbedder(embedder, same_as)
     rng = np.random.default_rng(SEED + 9)
@@ -1372,19 +1545,39 @@ def main() -> int:
     t = time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in,
                      fixed_ivf_input(torch, index, tile_len, dev))
 
-    # launches: phase 4's main path and phase 9's wall-clock run, each read
-    # with the counts set to 0 just before it; topk_merge's from phase 7
-    log(f"  launches: phase 4 {launches}, phase 9 {wc_launches}, phase 7 topk_merge "
-        f"{merge_launches}")
+    # 10. the MLA + MoE model served at full width and depth ------------------
+    # phases 4-9's stacks go first (the recorded attention input holds views
+    # of phase 4's cache slab)
+    del engine, hybrid, attn_in, aq, ak, av, alen, ivf_in, fused_in, q, slab
+    free(torch, dev)
+    log(f"[10] {MOE_ARCH} at full width and depth: Server + RealBackend, 8 requests")
+    t0 = time.perf_counter()
+    moe_launches = serve_moe_path(torch, dev, index, embedder)
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f}s")
+
+    # 11. the rest of the zoo at full width ----------------------------------
+    log("[11] the zoo at full width: decode vs prefill per family; int8 KV cache")
+    t0 = time.perf_counter()
+    attn_ops.decode_attention.launches = 0
+    zoo_checks(torch, dev)
+    zoo_launches = {"decode_attention": attn_ops.decode_attention.launches}
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f}s")
+
+    # launches: phase 4's main path, phase 9's wall-clock run, phase 10's
+    # served path and phase 11's zoo, each read with the counts set to 0 just
+    # before it; topk_merge's from phase 7
+    log(f"  launches: phase 4 {launches}, phase 9 {wc_launches}, phase 10 {moe_launches}, "
+        f"phase 11 {zoo_launches}, phase 7 topk_merge {merge_launches}")
     kernels = [
         {"name": "ivf_scan", "route": "cuda", "source": "src/repro_torch/csrc/ivf_scan.cu",
          "replaces": "src/repro/kernels/ivf_scan/ivf_scan.py:111",
-         "launches": launches["ivf_scan"] + wc_launches["ivf_scan"], "max_abs_err": ivf_err,
-         **t["ivf_scan"]},
+         "launches": launches["ivf_scan"] + wc_launches["ivf_scan"] + moe_launches["ivf_scan"],
+         "max_abs_err": ivf_err, **t["ivf_scan"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/decode_attention.py:80",
-         "launches": launches["decode_attention"] + wc_launches["decode_attention"],
+         "launches": (launches["decode_attention"] + wc_launches["decode_attention"]
+                      + moe_launches["decode_attention"] + zoo_launches["decode_attention"]),
          "max_abs_err": attn_err,
          **t["decode_attention"]},
         {"name": "topk_merge", "route": "cuda", "source": "src/repro_torch/csrc/topk_merge.cu",

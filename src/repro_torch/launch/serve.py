@@ -5,9 +5,12 @@ retrieval engines.
 
 runs on the card by default (``--device cpu`` runs the plain PyTorch
 versions of the kernels on the CPU) and offers every flag of the JAX
-package's launcher.  ``--index-sharding`` serves in shard mode (each
-retrieval worker owns a contiguous cluster range and its own partition of
-the device slab) and ``--fault-seed`` injects a seeded ``FaultPlan``.
+package's launcher.  ``--arch`` picks the model family (its reduced config,
+as the JAX launcher): every decoder-only arch serves; ``whisper-medium`` is
+refused at start-up, since the engine passes no encoder frames.
+``--index-sharding`` serves in shard mode (each retrieval worker owns a
+contiguous cluster range and its own partition of the device slab) and
+``--fault-seed`` injects a seeded ``FaultPlan``.
 ``--wallclock`` serves through the threaded wall-clock ingress
 (``serving/ingress.py``), open-loop or with ``--closed-loop`` clients;
 ``--replay-check`` records the measured charges on a ``DurationTape``,
@@ -138,6 +141,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
+    cfg = get_config(args.arch).reduced()
+    if cfg.is_encoder_decoder:
+        ap.error(f"--arch {args.arch} is an encoder-decoder model: the generation engine "
+                 "passes no encoder frames, so it serves only decoder-only archs")
 
     device = resolve_device(args.device)
     fault_plan = None
@@ -149,7 +156,6 @@ def main(argv=None):
             transient_prob=args.fault_transient_prob)
         print(f"fault plan: {fault_plan.describe()}")
     docs, _, topics = make_corpus(CorpusConfig(n_docs=8000, dim=48, n_topics=64))
-    cfg = get_config(args.arch).reduced()
     params = lm.init_params(cfg, seed=0, device=device)
     index = IVFIndex.build(docs, n_clusters=32, iters=4, device=device)
     texts = [f"query {i}" for i in range(args.n_requests)]

@@ -12,7 +12,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import check_supported
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -25,7 +24,6 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """``tree``: the JAX params pytree with numpy (or array-like) leaves, e.g.
     ``jax.tree.map(np.asarray, lm.init_params(cfg, key))``."""
-    check_supported(cfg)
     dev = resolve_device(device)
 
     def conv(node):

@@ -1,23 +1,34 @@
-"""Layer library, dense subset: norms, RoPE, GQA attention, SwiGLU FFN.
+"""Layer library: norms, positions, the attention family (GQA with optional
+qkv bias and qk-norm, the local ring window, the int8 KV cache,
+cross-attention, MLA) and the FFN family (SwiGLU, GeGLU, GELU MLP, RWKV
+channel mix, MoE).
 
 Conventions (as in the JAX package's ``models/layers.py``)
 ----------------------------------------------------------
 * Parameters are plain nested dicts of tensors.  Weights keep the JAX
-  layout: ``x @ W`` with ``W`` of shape ``(in, out)``.
+  layout: ``x @ W`` with ``W`` of shape ``(in, out)``.  ``init_*`` functions
+  draw a segment's parameters already stacked on its leading layer axis.
 * Apply functions are mode-polymorphic:
 
+    mode='forward'  full sequence, no state (the encoder, reference logits)
     mode='prefill'  full sequence, returns a decode state
     mode='decode'   one new token per sequence, consumes + returns state
 
+  ``mode='train'`` raises: training is ROADMAP.md queue A item 6.
 * Prefill attention is plain PyTorch (einsum, then an f32 softmax with the
-  ``-1e30`` mask).  Decode attention is the Hopper kernel
-  ``kernels.decode_attention`` (its plain version for CPU tensors).
+  ``-1e30`` mask).  Decode attention over a K/V cache (full, ring window,
+  or int8 dequantized to the model dtype) is the Hopper kernel
+  ``kernels.decode_attention`` (its plain version for CPU tensors).  MLA's
+  absorbed decode and cross-attention are plain f32 einsums, as in the JAX
+  package.
+* Decode writes the new K/V rows (and int8 scales) into the state in place.
 * Sharding annotations (``constrain``) have no counterpart on one card and
-  are dropped.
-
-Outside the subset (raise ``NotImplementedError``): the local ring window,
-the int8 KV cache and ``qkv_bias`` (ROADMAP queue A item 3); MLA, MoE,
-RWKV, RG-LRU, cross-attention and the other FFNs (ROADMAP queue A item 5).
+  are dropped; MoE routes over one token group (the JAX ``dp_total()`` is 1
+  on one card).
+* The ring window's prefill puts position ``p`` at slot ``p % window``, the
+  slot decode writes it to, so decode equals the full forward pass at every
+  prompt length (the JAX package left-pads the last ``window`` keys from
+  slot 0, which agrees only at multiples of ``window``).
 """
 from __future__ import annotations
 
@@ -33,33 +44,61 @@ from repro_torch.kernels.decode_attention import decode_attention
 Params = dict
 f32 = torch.float32
 
-_ROADMAP_DENSE = "ROADMAP.md queue A item 3 (dense model follow-ups)"
-_ROADMAP_ZOO = "ROADMAP.md queue A item 5 (rest of the model zoo)"
+MODES = ("forward", "prefill", "decode")
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for any part of ``cfg`` outside the port's dense subset."""
-    for seg in cfg.segments:
-        if seg.mixer == "local_attn":
-            raise NotImplementedError(f"local ring-window attention: {_ROADMAP_DENSE}")
-        if seg.mixer != "attn":
-            raise NotImplementedError(f"mixer {seg.mixer!r}: {_ROADMAP_ZOO}")
-        if seg.ffn != "swiglu":
-            raise NotImplementedError(f"ffn {seg.ffn!r}: {_ROADMAP_ZOO}")
-        if seg.cross_attn:
-            raise NotImplementedError(f"cross-attention: {_ROADMAP_ZOO}")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(f"int8 KV cache: {_ROADMAP_DENSE}")
-    if cfg.qkv_bias:
-        raise NotImplementedError(f"qkv_bias: {_ROADMAP_DENSE}")
-    if cfg.pos_emb != "rope":
-        raise NotImplementedError(f"pos_emb {cfg.pos_emb!r}: {_ROADMAP_ZOO}")
-    if cfg.is_encoder_decoder or cfg.n_prefix_embeds:
-        raise NotImplementedError(f"encoder / prefix embeddings: {_ROADMAP_ZOO}")
+def check_mode(mode: str) -> None:
+    if mode == "train":
+        raise NotImplementedError("mode 'train': training is ROADMAP.md queue A item 6")
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
+
+
+# ---------------------------------------------------------------------------
+# Parameter init (the JAX package's scales; torch.Generator draws)
+# ---------------------------------------------------------------------------
+
+
+class Init:
+    """Draws parameters with a leading ``lead`` shape (a segment's layer
+    axis) from ``gen`` on ``device``.  ``normal`` is the JAX ``_dense``:
+    standard normal in f32 times ``scale`` (default ``1/sqrt(shape[0])`` of
+    the per-layer shape), cast to ``dtype``.  Each layer is drawn on its
+    own, so the f32 temporary is one layer's, not the segment's."""
+
+    def __init__(self, gen: torch.Generator, device, dtype: torch.dtype, lead: tuple = ()):
+        self.gen, self.device, self.dtype, self.lead = gen, device, dtype, tuple(lead)
+
+    def _fill(self, shape, draw, dtype):
+        out = torch.empty(self.lead + tuple(shape), dtype=dtype or self.dtype, device=self.device)
+        flat = out.view(-1, *shape) if self.lead else out[None]
+        for i in range(flat.shape[0]):
+            flat[i].copy_(draw())
+        return out
+
+    def normal(self, shape, scale=None, dtype=None):
+        scale = 1.0 / math.sqrt(shape[0]) if scale is None else scale
+        return self._fill(shape, lambda: torch.randn(shape, generator=self.gen, dtype=f32,
+                                                     device=self.device) * scale, dtype)
+
+    def uniform(self, shape, lo, hi, dtype=None):
+        return self._fill(shape, lambda: torch.rand(shape, generator=self.gen, dtype=f32,
+                                                    device=self.device) * (hi - lo) + lo, dtype)
+
+    def full(self, shape, value, dtype=None):
+        return torch.full(self.lead + tuple(shape), value, dtype=dtype or self.dtype,
+                          device=self.device)
+
+
+def init_norm(cfg: ModelConfig, mk: Init, d: Optional[int] = None) -> Params:
+    d = d or cfg.d_model
+    if cfg.norm_type == "layernorm":
+        return {"scale": mk.full((d,), 1.0), "bias": mk.full((d,), 0.0)}
+    return {"scale": mk.full((d,), 1.0)}
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +147,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_embedding(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., S) -> (..., S, d) f32 transformer sinusoids: sines, then cosines."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=f32, device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Prefill attention (plain PyTorch)
 # ---------------------------------------------------------------------------
@@ -127,10 +175,11 @@ def _sdpa_block(q, k, v, mask, scale):
     return out.reshape(B, Sq, H, dh).to(q.dtype)
 
 
-def blocked_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
+def blocked_attention(q, k, v, *, causal: bool, window: int = 0, q_chunk: int = 1024,
                       q_offset: int = 0) -> torch.Tensor:
     """Causal attention in query chunks, each against only the keys it may
-    see (``[0, q_offset + q1)``), so the work is ~S^2/2, not S^2.
+    see (``[lo, q_offset + q1)``, ``lo`` the window's start), so the work is
+    ~S^2/2 (or S * window), not S^2.
 
     q: (B, Sq, H, dh); k, v: (B, Sk, KV, dh).
     """
@@ -144,24 +193,44 @@ def blocked_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
     for q0 in range(0, Sq, qc):
         q1 = min(q0 + qc, Sq)
         hi = min(q_offset + q1, Sk)
+        lo = max(0, q_offset + q0 - window + 1) if window else 0
         qpos = q_offset + torch.arange(q0, q1, device=q.device)
-        kpos = torch.arange(0, hi, device=q.device)
+        kpos = torch.arange(lo, hi, device=q.device)
         mask = kpos[None, :] <= qpos[:, None]
-        outs.append(_sdpa_block(q[:, q0:q1], k[:, :hi], v[:, :hi], mask[None], scale))
+        if window:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        outs.append(_sdpa_block(q[:, q0:q1], k[:, lo:hi], v[:, lo:hi], mask[None], scale))
     return torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------
-# Dense attention mixer (GQA, optional qk-norm)
+# Attention mixer (GQA, optional qkv bias / qk-norm, ring window, int8 KV)
 # ---------------------------------------------------------------------------
+
+
+def init_attention(cfg: ModelConfig, seg: Segment, mk: Init) -> Params:
+    d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = {"wq": mk.normal((d, H * dh)), "wk": mk.normal((d, KV * dh)),
+         "wv": mk.normal((d, KV * dh)), "wo": mk.normal((H * dh, d))}
+    if cfg.qkv_bias:
+        p["bq"] = mk.full((H * dh,), 0.0)
+        p["bk"] = mk.full((KV * dh,), 0.0)
+        p["bv"] = mk.full((KV * dh,), 0.0)
+    if cfg.qk_norm:
+        p["q_norm"] = mk.full((dh,), 1.0)
+        p["k_norm"] = mk.full((dh,), 1.0)
+    return p
 
 
 def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
-    k = (x @ p["wk"]).reshape(B, S, KV, dh)
-    v = (x @ p["wv"]).reshape(B, S, KV, dh)
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = q.reshape(B, S, H, dh), k.reshape(B, S, KV, dh), v.reshape(B, S, KV, dh)
     if cfg.qk_norm:
         q = rms_norm_headwise(q, p["q_norm"])
         k = rms_norm_headwise(k, p["k_norm"])
@@ -173,11 +242,32 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
 
 def attention_init_state(cfg: ModelConfig, seg: Segment, batch: int, max_len: int,
                          device=None) -> Params:
-    """Decode-state skeleton (zeros) for one attention layer."""
-    check_supported(cfg)
+    """Decode-state skeleton (zeros) for one attention layer: a (B, max_len)
+    cache, a (B, window) ring for ``local_attn``; int8 rows with a
+    per-(token, kv head) f32 scale for ``kv_cache_dtype='int8'``."""
+    if seg.mixer == "local_attn":
+        max_len = min(max_len, cfg.local_window)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=f32, device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=f32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, KV, dh) -> (int8 values, per-(token, head) f32 scale).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dt) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dt)
 
 
 def _scatter_time(cache: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -194,47 +284,295 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor)
     return cache
 
 
+def _prefill_cache(t: torch.Tensor, rows: int, window: int) -> torch.Tensor:
+    """A (B, rows, ...) cache holding prefill's t (B, S, ...): position p at
+    row p, or for a ring window at row p % window (the last window ones)."""
+    B, S = t.shape[:2]
+    cache = torch.zeros((B, rows) + t.shape[2:], dtype=t.dtype, device=t.device)
+    if window:
+        pos = torch.arange(max(0, S - window), S, device=t.device)
+        cache[:, pos % window] = t[:, pos]
+    else:
+        cache[:, :S] = t
+    return cache
+
+
 def apply_attention(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *,
                     mode: str, positions: torch.Tensor, state: Optional[Params] = None,
                     cache_len: Optional[torch.Tensor] = None, max_len: int = 0):
     """Returns (out, new_state).  In decode mode ``state`` is updated in place."""
+    check_mode(mode)
     B, S, _ = x.shape
     H, dh = cfg.n_heads, cfg.d_head
+    window = cfg.local_window if seg.mixer == "local_attn" else 0
+    causal = seg.mixer != "encoder_attn"
     q, k, v = _qkv(cfg, p, x, positions)
 
-    if mode == "prefill":
-        out = blocked_attention(q, k, v, causal=True, q_chunk=cfg.attn_q_chunk)
-        shape = (B, max_len, cfg.n_kv_heads, dh)
-        st = {"k": torch.zeros(shape, dtype=k.dtype, device=k.device),
-              "v": torch.zeros(shape, dtype=v.dtype, device=v.device)}
-        st["k"][:, :S] = k
-        st["v"][:, :S] = v
-        return out.reshape(B, S, H * dh) @ p["wo"], st
+    if mode != "decode":
+        out = blocked_attention(q, k, v, causal=causal, window=window, q_chunk=cfg.attn_q_chunk)
+        out = out.reshape(B, S, H * dh) @ p["wo"]
+        if mode == "forward":
+            return out, None
+        rows = min(window, max_len) if window else max_len  # as attention_init_state
+        st = {"k": _prefill_cache(k, rows, window), "v": _prefill_cache(v, rows, window)}
+        if cfg.kv_cache_dtype == "int8":
+            kq, ks = _quantize_kv(st["k"])
+            vq, vs = _quantize_kv(st["v"])
+            st = {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
+        return out, st
+
+    # decode: S == 1; the new row goes to slot cache_len (ring: % window),
+    # then attention over the eff_len valid rows (>= 1)
+    slot = cache_len % window if window else cache_len
+    eff_len = torch.clamp(cache_len + 1, max=window) if window else cache_len + 1
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        st = {"k": _scatter_time(state["k"], kq, slot),
+              "k_scale": _scatter_time(state["k_scale"], ks, slot),
+              "v": _scatter_time(state["v"], vq, slot),
+              "v_scale": _scatter_time(state["v_scale"], vs, slot)}
+        k_full = _dequantize_kv(st["k"], st["k_scale"], k.dtype)
+        v_full = _dequantize_kv(st["v"], st["v_scale"], v.dtype)
+    else:
+        st = {"k": _scatter_time(state["k"], k, slot), "v": _scatter_time(state["v"], v, slot)}
+        k_full, v_full = st["k"], st["v"]
+    out = decode_attention(q.reshape(B, H, dh), k_full, v_full, eff_len.to(torch.int32))
+    return out.reshape(B, S, H * dh) @ p["wo"], st
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder; plain, as the JAX package's _sdpa_block)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(cfg: ModelConfig, mk: Init) -> Params:
+    d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    return {"wq": mk.normal((d, H * dh)), "wk": mk.normal((d, KV * dh)),
+            "wv": mk.normal((d, KV * dh)), "wo": mk.normal((H * dh, d))}
+
+
+def apply_cross_attention(cfg: ModelConfig, p: Params, x, enc_kv):
+    """enc_kv: dict with 'k','v' (B, Senc, KV, dh) precomputed from encoder."""
+    B, S, _ = x.shape
+    H, dh = cfg.n_heads, cfg.d_head
+    q = (x @ p["wq"]).reshape(B, S, H, dh)
+    out = _sdpa_block(q, enc_kv["k"], enc_kv["v"], None, 1.0 / math.sqrt(dh))
+    return out.reshape(B, S, H * dh) @ p["wo"]
+
+
+def encode_cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor) -> Params:
+    B, Se, _ = enc_out.shape
+    KV, dh = cfg.n_kv_heads, cfg.d_head
+    return {"k": (enc_out @ p["wk"]).reshape(B, Se, KV, dh),
+            "v": (enc_out @ p["wv"]).reshape(B, Se, KV, dh)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ModelConfig, seg: Segment, mk: Init) -> Params:
+    d, H = cfg.d_model, cfg.n_heads
+    r, rp, np_, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+    p: Params = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = mk.normal((d, cfg.q_lora_rank))
+        p["q_norm"] = mk.full((cfg.q_lora_rank,), 1.0)
+        p["wq_b"] = mk.normal((cfg.q_lora_rank, H * (np_ + rp)))
+    else:
+        p["wq"] = mk.normal((d, H * (np_ + rp)))
+    p["wkv_a"] = mk.normal((d, r + rp))
+    p["kv_norm"] = mk.full((r,), 1.0)
+    p["wk_b"] = mk.normal((r, H * np_))
+    p["wv_b"] = mk.normal((r, H * vd))
+    p["wo"] = mk.normal((H * vd, d))
+    return p
+
+
+def mla_init_state(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Params:
+    dt = dtype_of(cfg)
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dt, device=device),
+            "kpe": torch.zeros((batch, max_len, cfg.rope_head_dim), dtype=dt, device=device)}
+
+
+def _mla_q(cfg: ModelConfig, p: Params, x, positions):
+    B, S, _ = x.shape
+    H, rp, np_ = cfg.n_heads, cfg.rope_head_dim, cfg.nope_head_dim
+    if cfg.q_lora_rank:
+        qa = rms_norm_headwise(x @ p["wq_a"], p["q_norm"])
+        q = (qa @ p["wq_b"]).reshape(B, S, H, np_ + rp)
+    else:
+        q = (x @ p["wq"]).reshape(B, S, H, np_ + rp)
+    q_nope, q_pe = q[..., :np_], q[..., np_:]
+    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
+
+
+def _mla_kv_latent(cfg: ModelConfig, p: Params, x, positions):
+    r = cfg.kv_lora_rank
+    kv = x @ p["wkv_a"]
+    ckv = rms_norm_headwise(kv[..., :r], p["kv_norm"])
+    kpe = apply_rope(kv[..., r:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return ckv, kpe
+
+
+def apply_mla(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *, mode: str,
+              positions, state=None, cache_len=None, max_len: int = 0):
+    check_mode(mode)
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    r, rp, np_, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+    q_nope, q_pe = _mla_q(cfg, p, x, positions)
+    ckv, kpe = _mla_kv_latent(cfg, p, x, positions)
 
     if mode != "decode":
-        raise NotImplementedError(f"mode {mode!r}: training is ROADMAP.md queue A item 6")
-    # decode: S == 1, per-sequence write at cache_len, then attention over
-    # the cache_len + 1 valid rows (>= 1, so an empty slot attends to one row)
-    k_new = _scatter_time(state["k"], k, cache_len)
-    v_new = _scatter_time(state["v"], v, cache_len)
-    out = decode_attention(q.reshape(B, H, dh), k_new, v_new,
-                           (cache_len + 1).to(torch.int32))
-    return out.reshape(B, S, H * dh) @ p["wo"], {"k": k_new, "v": v_new}
+        # expand per-head K/V from the latent (standard prefill path)
+        k_nope = (ckv @ p["wk_b"]).reshape(B, S, H, np_)
+        v = (ckv @ p["wv_b"]).reshape(B, S, H, vd)
+        k = torch.cat([k_nope, kpe[:, :, None, :].expand(B, S, H, rp)], -1)
+        q = torch.cat([q_nope, q_pe], -1)
+        # pad v's head dim so the blocked attention sees equal d; slice after
+        vpad = F.pad(v, (0, np_ + rp - vd))
+        out = blocked_attention(q, k, vpad, causal=True, q_chunk=cfg.attn_q_chunk)[..., :vd]
+        y = out.reshape(B, S, H * vd) @ p["wo"]
+        if mode == "forward":
+            return y, None
+        return y, {"ckv": _prefill_cache(ckv, max_len, 0), "kpe": _prefill_cache(kpe, max_len, 0)}
+
+    # decode: absorbed formulation, attention in latent space in f32 (no
+    # per-head K/V).  scores = q_nope @ Wk_b^T(head) @ ckv + q_pe @ kpe
+    ckv_c = _scatter_time(state["ckv"], ckv, cache_len)
+    kpe_c = _scatter_time(state["kpe"], kpe, cache_len)
+    wk_b = p["wk_b"].reshape(r, H, np_)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), wk_b.float())  # (B,1,H,r)
+    ckv_f = ckv_c.float()
+    scores = torch.einsum("bshr,btr->bhst", q_lat, ckv_f)
+    scores = scores + torch.einsum("bshp,btp->bhst", q_pe.float(), kpe_c.float())
+    scores = scores * (1.0 / math.sqrt(np_ + rp))
+    valid = torch.arange(ckv_c.shape[1], device=x.device)[None, :] < (cache_len + 1)[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    pattn = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", pattn, ckv_f)  # latent context
+    wv_b = p["wv_b"].reshape(r, H, vd)
+    out = torch.einsum("bshr,rhv->bshv", ctx, wv_b.float()).to(x.dtype)
+    return out.reshape(B, S, H * vd) @ p["wo"], {"ckv": ckv_c, "kpe": kpe_c}
 
 
 # ---------------------------------------------------------------------------
-# FFN (SwiGLU)
+# FFN family
 # ---------------------------------------------------------------------------
+
+
+def gelu(x):
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
 def _act(cfg: ModelConfig, x):
-    if cfg.act == "gelu":
-        return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
-    return F.silu(x)
+    return gelu(x) if cfg.act == "gelu" else F.silu(x)
 
 
-def apply_ffn(cfg: ModelConfig, seg: Segment, p: Params, x):
-    """SwiGLU: (act(x @ w1) * (x @ w3)) @ w2."""
-    if seg.ffn != "swiglu":
-        raise NotImplementedError(f"ffn {seg.ffn!r}: {_ROADMAP_ZOO}")
-    return (_act(cfg, x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+def init_ffn(cfg: ModelConfig, seg: Segment, mk: Init) -> Params:
+    d, ff = cfg.d_model, cfg.d_ff
+    if seg.ffn in ("swiglu", "geglu"):
+        return {"w1": mk.normal((d, ff)), "w3": mk.normal((d, ff)), "w2": mk.normal((ff, d))}
+    if seg.ffn == "gelu_mlp":
+        return {"w1": mk.normal((d, ff)), "b1": mk.full((ff,), 0.0),
+                "w2": mk.normal((ff, d)), "b2": mk.full((d,), 0.0)}
+    if seg.ffn == "rwkv_cmix":
+        return {"mu_k": mk.full((d,), 0.5), "mu_r": mk.full((d,), 0.5),
+                "wk": mk.normal((d, ff)), "wv": mk.normal((ff, d)), "wr": mk.normal((d, d))}
+    if seg.ffn == "moe":
+        return init_moe(cfg, mk)
+    raise ValueError(seg.ffn)
+
+
+def apply_ffn(cfg: ModelConfig, seg: Segment, p: Params, x, *, mode: str, state=None):
+    """Returns (out, new_state); the state is rwkv_cmix's token shift (the
+    last input, (B, 1, d)), else None."""
+    check_mode(mode)
+    if seg.ffn in ("swiglu", "geglu"):
+        gate = _act(cfg, x @ p["w1"]) if seg.ffn == "swiglu" else gelu(x @ p["w1"])
+        return (gate * (x @ p["w3"])) @ p["w2"], None
+    if seg.ffn == "gelu_mlp":
+        return gelu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"], None
+    if seg.ffn == "rwkv_cmix":
+        xs = state if mode == "decode" else F.pad(x, (0, 0, 1, 0))[:, :-1]
+        xk = x + (xs - x) * p["mu_k"]
+        xr = x + (xs - x) * p["mu_r"]
+        k = torch.square(torch.relu(xk @ p["wk"]))
+        return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1:, :]
+    if seg.ffn == "moe":
+        return apply_moe(cfg, p, x), None
+    raise ValueError(seg.ffn)
+
+
+def ffn_init_state(cfg: ModelConfig, seg: Segment, batch: int, device=None):
+    if seg.ffn == "rwkv_cmix":
+        return torch.zeros((batch, 1, cfg.d_model), dtype=dtype_of(cfg), device=device)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing with capacity-based dispatch (one token group)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(cfg: ModelConfig, mk: Init) -> Params:
+    d, E, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    p = {"router": mk.normal((d, E), dtype=f32), "w1": mk.normal((E, d, ff)),
+         "w3": mk.normal((E, d, ff)), "w2": mk.normal((E, ff, d))}
+    if cfg.n_shared_experts:
+        sf = ff * cfg.n_shared_experts
+        p["sw1"] = mk.normal((d, sf))
+        p["sw3"] = mk.normal((d, sf))
+        p["sw2"] = mk.normal((sf, d))
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    c = int(math.ceil(n_tokens * cfg.moe_top_k * cfg.capacity_factor / cfg.n_experts))
+    return max(8, -(-c // 8) * 8)  # round up to 8, as the JAX package does
+
+
+def moe_route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor):
+    """Routing of tokens xt (T, d): (gates (T, K) f32, experts (T, K), slot
+    (T*K,) in the (E*C + 1)-row dispatch buffer, C).  Softmax in f32, then
+    the top K with ties to the lower expert index (as ``lax.top_k``: a
+    stable descending sort); each token's choice takes the next free row of
+    its expert in token order, and choices past the capacity C go to the
+    overflow row E*C."""
+    E, K = cfg.n_experts, cfg.moe_top_k
+    T = xt.shape[0]
+    probs = torch.softmax(xt.float() @ router, dim=-1)
+    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = gate_vals[:, :K], expert_idx[:, :K]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    flat_e = expert_idx.reshape(T * K)
+    # position within the expert: a stable sort by expert keeps token order
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, torch.arange(E, device=xt.device), side="left")
+    pos = torch.empty_like(flat_e)
+    pos[order] = torch.arange(T * K, device=xt.device) - first[sorted_e]
+    C = moe_capacity(cfg, T)
+    slot = torch.where(pos < C, flat_e * C + pos, E * C)
+    return gate_vals, expert_idx, slot, C
+
+
+def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.moe_top_k
+    xt = x.reshape(B * S, d)
+    gate_vals, _, slot, C = moe_route(cfg, p["router"], xt)
+    keep = slot < E * C
+    buf = torch.zeros((E * C, d), dtype=x.dtype, device=x.device)
+    buf[slot[keep]] = xt.repeat_interleave(K, dim=0)[keep]
+    h = buf.view(E, C, d)
+    g = _act(cfg, torch.bmm(h, p["w1"])) * torch.bmm(h, p["w3"])
+    y = torch.cat([torch.bmm(g, p["w2"]).reshape(E * C, d), buf.new_zeros((1, d))])
+    y_tok = y[slot].reshape(B * S, K, d)  # dropped choices read the zero row
+    out = (y_tok * gate_vals[..., None].to(y.dtype)).sum(1)
+    if cfg.n_shared_experts:
+        out = out + (_act(cfg, xt @ p["sw1"]) * (xt @ p["sw3"])) @ p["sw2"]
+    return out.reshape(B, S, d)

@@ -1,17 +1,28 @@
-"""Language model over a stack of dense decoder layers (the port's subset).
+"""Language model over heterogeneous layer stacks (every family of the JAX
+package's ``models/lm.py``).
+
+A model is a sequence of ``Segment`` runs (see configs.base).  Per segment
+the parameters and the decode state are stacked on a leading layer axis, as
+in the JAX pytree; the JAX ``lax.scan`` over a segment's layers is a Python
+loop over that axis.
 
 Entry points (functions of ``(params, cfg, ...)``, as in the JAX package):
 
-  init_params(cfg, generator, device=...)        -> params dict
-  prefill(params, cfg, tokens, max_len=...)      -> (last_logits, DecodeState)
-  decode_step(params, cfg, tokens, state)        -> (logits, DecodeState)
-  init_decode_state(cfg, batch, max_len, ...)    -> DecodeState (zeros)
+  init_params(cfg, generator, device=...)              -> params dict
+  forward(params, cfg, tokens, ...)                    -> logits (B, S, V)
+  prefill(params, cfg, tokens, max_len=..., ...)       -> (last_logits, DecodeState)
+  decode_step(params, cfg, tokens, state)              -> (logits, DecodeState)
+  init_decode_state(cfg, batch, max_len, ...)          -> DecodeState (zeros)
 
-DecodeState = {"cache_len": (B,) i32, "segments": list[per-segment state]}.
-Per segment the parameters and the decode state are stacked on a leading
-layer axis, as in the JAX pytree; the JAX ``lax.scan`` over a segment's
-layers is a Python loop over that axis.  ``decode_step`` writes the new K/V
-rows into ``state`` in place.
+``prefix_embeds`` (B, P, d) are prepended to the text (VLM), and
+``enc_embeds`` (B, Se, d) are the encoder's input frames (enc-dec).
+DecodeState = {"cache_len": (B,) i32, "segments": list[per-segment state]},
+each segment's state a dict of stacked tensors: ``mixer`` (K/V cache, ring,
+int8 rows and scales, MLA latents, RWKV ``S``/``x_prev``, RG-LRU
+``h``/``conv``), ``ffn`` (rwkv_cmix's previous input) and ``enc_kv``.
+``decode_step`` updates ``state`` in place: K/V rows are scattered into the
+cache, and the recurrent states, which each step computes anew, are copied
+into their slab.
 """
 from __future__ import annotations
 
@@ -22,16 +33,45 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, Segment
 from repro_torch.device import resolve_device
+from repro_torch.models import rglru, rwkv6
 from repro_torch.models.layers import (
+    Init,
     apply_attention,
+    apply_cross_attention,
     apply_ffn,
+    apply_mla,
     apply_norm,
     attention_init_state,
-    check_supported,
     dtype_of,
+    encode_cross_kv,
+    ffn_init_state,
+    init_attention,
+    init_cross_attention,
+    init_ffn,
+    init_mla,
+    init_norm,
+    mla_init_state,
+    sinusoidal_embedding,
 )
 
-f32 = torch.float32
+
+_MIXER_INIT = {
+    "attn": init_attention,
+    "local_attn": init_attention,
+    "encoder_attn": init_attention,
+    "mla": init_mla,
+    "rwkv6": rwkv6.init_timemix,
+    "rglru": rglru.init_rglru,
+}
+
+_MIXER_APPLY = {
+    "attn": apply_attention,
+    "local_attn": apply_attention,
+    "encoder_attn": apply_attention,
+    "mla": apply_mla,
+    "rwkv6": rwkv6.apply_timemix,
+    "rglru": rglru.apply_rglru,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -39,58 +79,47 @@ f32 = torch.float32
 # ---------------------------------------------------------------------------
 
 
-def _normal(gen, shape, scale, dtype, device):
-    return (torch.randn(shape, generator=gen, dtype=f32, device=device) * scale).to(dtype)
-
-
 def _init_segment(cfg: ModelConfig, seg: Segment, gen, device) -> dict:
-    dt = dtype_of(cfg)
-    L, d, H, KV, dh, ff = seg.repeat, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
-
-    def dense(fan_in, fan_out):  # normal / sqrt(fan_in), stacked over layers
-        return _normal(gen, (L, fan_in, fan_out), 1.0 / math.sqrt(fan_in), dt, device)
-
-    def ones(n):
-        return torch.ones((L, n), dtype=dt, device=device)
-
-    mixer = {"wq": dense(d, H * dh), "wk": dense(d, KV * dh),
-             "wv": dense(d, KV * dh), "wo": dense(H * dh, d)}
-    if cfg.qk_norm:
-        mixer["q_norm"] = ones(dh)
-        mixer["k_norm"] = ones(dh)
-    return {
-        "norm1": {"scale": ones(d)},
-        "mixer": mixer,
-        "norm2": {"scale": ones(d)},
-        "ffn": {"w1": dense(d, ff), "w3": dense(d, ff), "w2": dense(ff, d)},
+    mk = Init(gen, device, dtype_of(cfg), lead=(seg.repeat,))
+    p = {
+        "norm1": init_norm(cfg, mk),
+        "mixer": _MIXER_INIT[seg.mixer](cfg, seg, mk),
+        "norm2": init_norm(cfg, mk),
+        "ffn": init_ffn(cfg, seg, mk),
     }
+    if seg.cross_attn:
+        p["norm_x"] = init_norm(cfg, mk)
+        p["cross"] = init_cross_attention(cfg, mk)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
                 seed: int = 0, device="cuda") -> dict:
     """Random parameters with the JAX package's scales: weights
-    normal/sqrt(fan_in), embedding normal * 0.02, norm scales one.
+    normal/sqrt(fan_in) unless the JAX init says otherwise, embedding
+    normal * 0.02, norm scales one, biases zero.
 
     Draws from ``generator`` (a ``torch.Generator`` on ``device``), or from a
     new one seeded with ``seed``.  The numbers differ from ``jax.random``'s;
     parity tests convert the JAX parameters instead (``models.convert``).
     """
-    check_supported(cfg)
     dev = resolve_device(device)
-    if cfg.norm_type == "layernorm":
-        raise NotImplementedError("layernorm parameters: ROADMAP.md queue A item 5")
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
-    dt = dtype_of(cfg)
+    mk = Init(generator, dev, dtype_of(cfg))
     params: dict = {
-        "embed": _normal(generator, (cfg.vocab_size, cfg.d_model), 0.02, dt, dev),
-        "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=dt, device=dev)},
+        "embed": mk.normal((cfg.vocab_size, cfg.d_model), scale=0.02),
+        "final_norm": init_norm(cfg, mk),
         "segments": [_init_segment(cfg, seg, generator, dev) for seg in cfg.segments],
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = _normal(generator, (cfg.d_model, cfg.vocab_size),
-                                    1.0 / math.sqrt(cfg.d_model), dt, dev)
+        params["lm_head"] = mk.normal((cfg.d_model, cfg.vocab_size))
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "segments": [_init_segment(cfg, seg, generator, dev) for seg in cfg.encoder_segments],
+            "final_norm": init_norm(cfg, mk),
+        }
     return params
 
 
@@ -106,16 +135,71 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _apply_block(cfg, seg, p, x, *, mode, positions, state, cache_len, max_len):
+def _stack(trees: list):
+    """Per-layer trees -> one tree stacked on a new leading layer axis."""
+    if isinstance(trees[0], dict):
+        return {key: _stack([t[key] for t in trees]) for key in trees[0]}
+    return torch.stack(trees)
+
+
+def _write_back(stacked, i: int, new) -> None:
+    """Store layer i's new state into the stacked slab.  A leaf the layer
+    updated in place (a K/V cache) is already there; a new tensor (a
+    recurrent state) is copied in."""
+    if isinstance(stacked, dict):
+        for key, val in stacked.items():
+            _write_back(val, i, new[key])
+        return
+    dst = stacked[i]
+    if new.data_ptr() != dst.data_ptr():
+        dst.copy_(new)
+
+
+def _apply_block(cfg, seg, p, x, *, mode, positions, state, cache_len, enc_out, max_len):
+    st_in = state or {}
     h = apply_norm(cfg, p["norm1"], x)
-    mix_out, mix_st = apply_attention(
-        cfg, seg, p["mixer"], h, mode=mode, positions=positions,
-        state=None if state is None else state["mixer"],
+    mix_out, mix_st = _MIXER_APPLY[seg.mixer](
+        cfg, seg, p["mixer"], h, mode=mode, positions=positions, state=st_in.get("mixer"),
         cache_len=cache_len, max_len=max_len)
     x = x + mix_out
+    new_state: dict = {}
+    if mix_st is not None:
+        new_state["mixer"] = mix_st
+    if seg.cross_attn:
+        h = apply_norm(cfg, p["norm_x"], x)
+        enc_kv = st_in["enc_kv"] if mode == "decode" else encode_cross_kv(cfg, p["cross"], enc_out)
+        x = x + apply_cross_attention(cfg, p["cross"], h, enc_kv)
+        if mode != "forward":
+            new_state["enc_kv"] = enc_kv  # decode carries it through unchanged
     h = apply_norm(cfg, p["norm2"], x)
-    x = x + apply_ffn(cfg, seg, p["ffn"], h)
-    return x, {"mixer": mix_st}
+    ffn_out, ffn_st = apply_ffn(cfg, seg, p["ffn"], h, state=st_in.get("ffn"), mode=mode)
+    x = x + ffn_out
+    if ffn_st is not None and mode != "forward":
+        new_state["ffn"] = ffn_st
+    return x, new_state
+
+
+def _run_segment(cfg, seg, sp, x, *, mode, positions, stacked_state=None, cache_len=None,
+                 enc_out=None, max_len=0):
+    """A segment's layers in order.  Returns (x, stacked state or None):
+    prefill stacks every layer's state; decode writes it into
+    ``stacked_state``."""
+    states = []
+    for i in range(seg.repeat):
+        st = None if stacked_state is None else _layer(stacked_state, i)
+        x, new = _apply_block(cfg, seg, _layer(sp, i), x, mode=mode, positions=positions,
+                              state=st, cache_len=cache_len, enc_out=enc_out, max_len=max_len)
+        if mode == "decode":
+            _write_back(stacked_state, i, new)
+        states.append(new)
+    if mode == "prefill":
+        return x, _stack(states)
+    return x, stacked_state
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head / encoder
+# ---------------------------------------------------------------------------
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -131,32 +215,64 @@ def _head_weights(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["lm_head"]
 
 
-# ---------------------------------------------------------------------------
-# Serving: prefill + decode
-# ---------------------------------------------------------------------------
+def _encoder_forward(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """Stub-frontend encoder: enc_embeds (B, Se, d) precomputed frames."""
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: pass enc_embeds (B, Se, d)")
+    x = enc_embeds.to(dtype_of(cfg))
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = x + sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
+    for seg, sp in zip(cfg.encoder_segments, params["encoder"]["segments"]):
+        x, _ = _run_segment(cfg, seg, sp, x, mode="forward", positions=pos)
+    return apply_norm(cfg, params["encoder"]["final_norm"], x)
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int):
-    """tokens (B, S) -> (last-token logits (B, V) f32, DecodeState)."""
-    check_supported(cfg)
+def _forward(cfg, params, tokens, *, mode, prefix_embeds=None, enc_embeds=None, max_len=0):
+    """Shared forward/prefill trunk.  Returns (h, states, n_prefix)."""
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    n_prefix = 0
+    if cfg.n_prefix_embeds and prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        n_prefix = prefix_embeds.shape[1]
+    St = x.shape[1]
+    positions = torch.arange(St, device=x.device)[None, :].expand(B, St)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+    enc_out = _encoder_forward(cfg, params, enc_embeds) if cfg.is_encoder_decoder else None
     states = []
     for seg, sp in zip(cfg.segments, params["segments"]):
-        layer_states = []
-        for i in range(seg.repeat):
-            x, st = _apply_block(cfg, seg, _layer(sp, i), x, mode="prefill",
-                                 positions=positions, state=None, cache_len=None,
-                                 max_len=max_len)
-            layer_states.append(st)
-        states.append({"mixer": {
-            name: torch.stack([st["mixer"][name] for st in layer_states])
-            for name in ("k", "v")}})
-    h = apply_norm(cfg, params["final_norm"], x)
+        x, st = _run_segment(cfg, seg, sp, x, mode=mode, positions=positions, enc_out=enc_out,
+                             max_len=max_len)
+        states.append(st)
+    return apply_norm(cfg, params["final_norm"], x), states, n_prefix
+
+
+# ---------------------------------------------------------------------------
+# Serving: forward, prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *, prefix_embeds=None,
+            enc_embeds=None) -> torch.Tensor:
+    """tokens (B, S) -> f32 logits (B, S, V) at every text position (no
+    state): the reference that prefill + decode must reproduce."""
+    h, _, n_prefix = _forward(cfg, params, tokens, mode="forward", prefix_embeds=prefix_embeds,
+                              enc_embeds=enc_embeds)
+    return (h[:, n_prefix:] @ _head_weights(cfg, params)).float()
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
+            prefix_embeds=None, enc_embeds=None):
+    """tokens (B, S) -> (last-token logits (B, V) f32, DecodeState) with
+    ``cache_len = S + n_prefix``."""
+    B, S = tokens.shape
+    h, states, n_prefix = _forward(cfg, params, tokens, mode="prefill",
+                                   prefix_embeds=prefix_embeds, enc_embeds=enc_embeds,
+                                   max_len=max_len)
     logits = (h[:, -1, :] @ _head_weights(cfg, params)).float()
     state = {
-        "cache_len": torch.full((B,), S, dtype=torch.int32, device=x.device),
+        "cache_len": torch.full((B,), S + n_prefix, dtype=torch.int32, device=h.device),
         "segments": states,
     }
     return logits, state
@@ -165,32 +281,60 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: in
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, state: dict):
     """tokens (B,) new token per sequence -> (logits (B, V) f32, DecodeState).
 
-    Each layer's K/V cache in ``state`` is updated in place; the returned
-    state holds the same cache tensors and ``cache_len + 1``.
+    ``state`` is updated in place; the returned state holds the same tensors
+    and ``cache_len + 1``.
     """
     cache_len = state["cache_len"]
     x = _embed(cfg, params, tokens[:, None])
     positions = cache_len[:, None]
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
     for seg, sp, st in zip(cfg.segments, params["segments"], state["segments"]):
-        for i in range(seg.repeat):
-            x, _ = _apply_block(cfg, seg, _layer(sp, i), x, mode="decode",
-                                positions=positions, state=_layer(st, i),
-                                cache_len=cache_len, max_len=0)
+        x, _ = _run_segment(cfg, seg, sp, x, mode="decode", positions=positions,
+                            stacked_state=st, cache_len=cache_len)
     h = apply_norm(cfg, params["final_norm"], x)
     logits = (h[:, 0, :] @ _head_weights(cfg, params)).float()
     return logits, {"cache_len": cache_len + 1, "segments": state["segments"]}
+
+
+# ---------------------------------------------------------------------------
+# Decode-state construction without running prefill (serving slabs)
+# ---------------------------------------------------------------------------
+
+
+def _layer_state_skeleton(cfg: ModelConfig, seg: Segment, batch: int, max_len: int, device):
+    st: dict = {}
+    if seg.mixer in ("attn", "local_attn"):
+        st["mixer"] = attention_init_state(cfg, seg, batch, max_len, device=device)
+    elif seg.mixer == "mla":
+        st["mixer"] = mla_init_state(cfg, batch, max_len, device=device)
+    elif seg.mixer == "rwkv6":
+        st["mixer"] = rwkv6.timemix_init_state(cfg, batch, device=device)
+    elif seg.mixer == "rglru":
+        st["mixer"] = rglru.rglru_init_state(cfg, batch, device=device)
+    if seg.cross_attn:
+        shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.d_head)
+        st["enc_kv"] = {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+                        "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+    fst = ffn_init_state(cfg, seg, batch, device=device)
+    if fst is not None:
+        st["ffn"] = fst
+    return st
+
+
+def _zeros_stacked(tree, n: int, dev):
+    if isinstance(tree, dict):
+        return {key: _zeros_stacked(val, n, dev) for key, val in tree.items()}
+    return torch.zeros((n,) + tuple(tree.shape), dtype=tree.dtype, device=dev)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, filled: int = 0,
                       *, device="cuda") -> dict:
     """Zero decode state with capacity ``max_len`` and ``filled`` tokens."""
     dev = resolve_device(device)
-    segs = []
-    for seg in cfg.segments:
-        one = attention_init_state(cfg, seg, batch, max_len, device=dev)
-        segs.append({"mixer": {name: torch.zeros((seg.repeat,) + t.shape, dtype=t.dtype,
-                                                 device=dev)
-                               for name, t in one.items()}})
+    # one layer's skeleton on the meta device gives the shapes, allocating nothing
+    segs = [_zeros_stacked(_layer_state_skeleton(cfg, seg, batch, max_len, "meta"), seg.repeat,
+                           dev) for seg in cfg.segments]
     return {
         "cache_len": torch.full((batch,), filled, dtype=torch.int32, device=dev),
         "segments": segs,

@@ -48,6 +48,9 @@ class GenerationEngine:
                  max_len: int = 512, eos_id: int = 0,
                  sampler: Optional[SamplerConfig] = None, seed: int = 0,
                  device="cuda"):
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: the engine passes no "
+                             "encoder frames, so it serves decoder-only models")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the engine "
@@ -78,11 +81,19 @@ class GenerationEngine:
         return nxt
 
     def _insert(self, one_state: dict, slot: int) -> None:
-        """Copy a one-sequence prefill state into slab slot ``slot``."""
+        """Copy a one-sequence prefill state into slab slot ``slot``: every
+        leaf (K/V rows, int8 scales, latents, recurrent states, enc_kv)."""
         self.state["cache_len"][slot] = one_state["cache_len"][0]
+
+        def ins(slab, one):
+            if isinstance(slab, dict):
+                for name in slab:
+                    ins(slab[name], one[name])
+            else:
+                slab[:, slot] = one[:, 0]  # (L, B, ...) <- (L, 1, ...)
+
         for slab_seg, one_seg in zip(self.state["segments"], one_state["segments"]):
-            for name, slab in slab_seg["mixer"].items():
-                slab[:, slot] = one_seg["mixer"][name][:, 0]  # (L, B, ...) <- (L, 1, ...)
+            ins(slab_seg, one_seg)
 
     # ------------------------------------------------------------------ API
     def can_admit(self) -> bool:

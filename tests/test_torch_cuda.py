@@ -343,3 +343,56 @@ def test_launcher_wallclock_replay_check_on_the_card(cuda, tmp_path, capsys):
     assert "replay-check ok" in out and "on cuda" in out
     assert decode_attention.launches > a0
     assert (tmp_path / "trace.json").stat().st_size > 0
+
+
+@pytest.mark.parametrize("H,KV,dh", [
+    (32, 32, 96),   # phi3-mini-3.8b: MHA, 12 bf16 vectors a row
+    (32, 8, 160),   # stablelm-12b: 20 bf16 vectors a row
+    (10, 1, 256),   # recurrentgemma-2b (over its ring): MQA, G = 10
+    (8, 1, 256),    # paligemma-3b: MQA, G = 8
+    (16, 16, 64),   # whisper-medium
+    (40, 8, 128),   # llama4-scout-17b-a16e: G = 5
+    (64, 8, 128),   # qwen1.5-110b: G = 8
+])
+def test_decode_attention_kernel_bf16_family_shapes(cuda, H, KV, dh):
+    """Each model family's full-width decode heads, in bf16."""
+    rng = np.random.default_rng(H * 1000 + dh)
+    S = 512
+    q, k, v = _attn_inputs(rng, 8, H, KV, dh, S, torch.bfloat16, cuda)
+    lengths = torch.tensor([1, 2, 31, 33, 100, 257, S - 1, S], dtype=torch.int32, device=cuda)
+    out = decode_attention(q, k, v, lengths)
+    torch.testing.assert_close(out.float(), decode_attention_ref(q, k, v, lengths).float(),
+                               **ATTN_BF16)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "phi3-mini-3.8b", "stablelm-12b", "qwen1.5-110b",
+                                  "recurrentgemma-2b", "rwkv6-1.6b", "whisper-medium",
+                                  "deepseek-v2-lite-16b", "llama4-scout-17b-a16e",
+                                  "paligemma-3b"])
+def test_zoo_decode_matches_forward_on_the_card(cuda, arch):
+    """Each family's reduced config on the card (f32): teacher-forced decode
+    (the kernel on attention caches) equals the full forward pass, from a
+    prompt of 21 tokens (not a multiple of recurrentgemma's window)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).reduced()
+    params = lm.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(3)
+    B, P, extra = 2, 21, 4
+    tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(B, P + extra)), device=cuda)
+    kw = {}
+    if cfg.n_prefix_embeds:
+        kw["prefix_embeds"] = torch.randn((B, cfg.n_prefix_embeds, cfg.d_model), device=cuda)
+    if cfg.is_encoder_decoder:
+        kw["enc_embeds"] = torch.randn((B, cfg.encoder_seq, cfg.d_model), device=cuda)
+    ref = lm.forward(params, cfg, tokens, **kw)
+    logits, state = lm.prefill(params, cfg, tokens[:, :P], max_len=P + extra + cfg.n_prefix_embeds,
+                               **kw)
+    a0 = decode_attention.launches
+    for i in range(extra):
+        torch.testing.assert_close(logits, ref[:, P - 1 + i], rtol=1e-4, atol=1e-4)
+        logits, state = lm.decode_step(params, cfg, tokens[:, P + i].int(), state)
+    torch.testing.assert_close(logits, ref[:, P + extra - 1], rtol=1e-4, atol=1e-4)
+    attn_layers = sum(s.repeat for s in cfg.segments if s.mixer in ("attn", "local_attn"))
+    assert decode_attention.launches - a0 == extra * attn_layers

@@ -27,8 +27,12 @@ COPIES = sorted(
     + [f"crossreq/{m}.py" for m in ("__init__", "popularity", "globalcache", "dedup")]
     + ["server.py", "workflows.py"]
 )
-# named by a docstring only; its port is ROADMAP.md queue A item 8
-NOT_PORTED = {"repro_torch.analysis.lint"}
+# repro-lint: copies under a wider rename, which also covers its policy's
+# zone prefixes (``repro/core/``) and its CLI's bare ``import repro``
+LINT_COPIES = sorted(p.relative_to(SRC / "repro").as_posix()
+                     for p in (SRC / "repro" / "analysis" / "lint").glob("*.py"))
+# modules that a port import names but the port lacks: none
+NOT_PORTED: set = set()
 
 
 def _imports(path: Path):
@@ -53,10 +57,26 @@ def _rename(text: str) -> str:
     return re.sub(r"\brepro(?=\.|\s+import\b)", "repro_torch", text)
 
 
+def _rename_lint(text: str) -> str:
+    return re.sub(r"\brepro(?=[./]|\s+import\b|\s*$)", "repro_torch", text, flags=re.M)
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copies_equal_their_sources(rel):
     src = (SRC / "repro" / rel).read_text()  # read as text, never imported
     assert (PORT / rel).read_text() == _rename(src)
+
+
+@pytest.mark.parametrize("rel", LINT_COPIES)
+def test_lint_copies_equal_their_sources(rel):
+    src = (SRC / "repro" / rel).read_text()
+    assert (PORT / rel).read_text() == _rename_lint(src)
+
+
+def test_lint_copy_is_complete():
+    assert len(LINT_COPIES) == 8
+    assert sorted(p.relative_to(PORT).as_posix()
+                  for p in (PORT / "analysis" / "lint").glob("*.py")) == LINT_COPIES
 
 
 def _segment(path: Path, name: str) -> str:

@@ -114,7 +114,20 @@ def test_entry_points_take_cpu_when_asked(models):
     assert torch.equal(p["embed"], q["embed"])  # seeded
 
 
-def test_outside_dense_subset_raises():
-    cfg = get_config("rwkv6-1.6b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_params(cfg, device="cpu")
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-lite-16b", "rwkv6-1.6b",
+                                  "recurrentgemma-2b"])
+def test_train_mode_raises(arch):
+    """Every mixer and FFN serves; only training is outside the port."""
+    from repro_torch.models import layers
+    from repro_torch.models.lm import _MIXER_APPLY
+
+    cfg = get_config(arch).reduced()
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    seg = cfg.segments[-1]
+    p = lm._layer(params["segments"][-1], 0)
+    x = torch.zeros((1, 4, cfg.d_model))
+    pos = torch.arange(4)[None]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
+        _MIXER_APPLY[seg.mixer](cfg, seg, p["mixer"], x, mode="train", positions=pos)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
+        layers.apply_ffn(cfg, seg, p["ffn"], x, mode="train")
