@@ -79,7 +79,26 @@
    2048-row ring), rwkv6, paligemma (256 prefix embeddings) and whisper
    (2 encoder layers over 1500 frames, cross-attention).  Then qwen3-1.7b at
    full depth in bf16 with the int8 KV cache against the bf16 cache: cosine
-   > 0.999 at each of 8 decode steps.
+   > 0.999 at each of 8 decode steps, and the card's int8 codes and
+   scales equal the CPU's bit for bit.
+12. Training: (a) qwen3-1.7b at full width and depth (28 layers, bf16,
+   remat) takes 4 AdamW steps through ``make_train_step`` on one repeated B
+   2 x S 4096 ``SyntheticTokenStream`` batch, at lr 1e-3 (printed: it
+   swings up) and at lr 3e-5: every loss finite, the last below the first
+   at 3e-5; step time, tokens/s, model TFLOP/s and peak memory printed. (b)
+   One step of the full-width model cut to 2 layers in f32 on the card and
+   on the CPU from the same converted parameters. (c) Every other family at
+   full width cut to its first segment period: the train loss equals the
+   cross-entropy of the port's own forward logits, and every gradient is
+   finite. (d) Checkpoint and resume at 2 layers through ``ElasticRunner``:
+   the resumed step equals the uninterrupted run bit for bit. (e)
+   ``ErrorFeedback`` and the int8 codes over (a)'s gradients on the card
+   (codes equal to the CPU's), ``compressed_psum_leaf`` over 2 gloo ranks
+   on the card, and the train launcher as a subprocess, run and then
+   resumed from its step-3 checkpoint. No CUDA kernel of the port is on the
+   training path (its attention is the plain blocked attention, as the JAX
+   package's is jnp): each kernel's launches over phase 12 are read and
+   must be 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero without it.
@@ -146,6 +165,26 @@ ATTN_SHAPES = (("phi3-mini-3.8b", 32, 32, 96, 2048), ("stablelm-12b", 32, 8, 160
 LAUNCHER_ARGS = ("--wallclock", "--closed-loop", "4", "--n-requests", "8", "--replay-check")
 LAUNCHER_TIMEOUT_S = 300
 
+# Training (phase 12): qwen3-1.7b at train_4k's sequence length with its
+# global batch of 256 cut to 2 (one card, the script's time), 4 steps on one
+# repeated batch; the card-vs-CPU step at 2 layers, B 1 x S 256, f32; each
+# other family's train loss at (B, S); checkpoint/resume at 2 layers, 2 steps
+# then 1; the 2-rank compressed sum; the launcher's run and its resume.
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4
+# AdamW without warmup on bf16 parameters (no f32 master copy, as in the JAX
+# package): at lr 1e-3 the full-depth model's loss swings up (11.86 -> 22.46
+# in 4 steps); at 3e-5 it falls at each step.  12a runs 1e-3 for the record
+# (finite losses) and trains at 3e-5
+TRAIN_OPT = dict(lr=3e-5, warmup_steps=1)
+DIVERGING_LR = 1e-3
+CPU_STEP_B, CPU_STEP_S = 1, 256
+ZOO_TRAIN_B, ZOO_TRAIN_S = 2, 300
+# llama4-scout and qwen1.5-110b train in bf16 even at 2 layers: f32
+# parameters and gradients would take ~52 and ~42 GB
+ZOO_TRAIN_BF16 = ("llama4-scout-17b-a16e", "qwen1.5-110b")
+PSUM_WORLD = 2
+TRAIN_LAUNCHER_ARGS = ("--arch", "qwen3-1.7b", "--reduced", "--steps", "6", "--save-every", "3")
+
 # Tolerances of the kernel-vs-plain comparisons.
 # f32: the kernel and the plain version differ only in summation order.
 F32 = dict(rtol=1e-4, atol=1e-5)
@@ -160,6 +199,17 @@ ATTN_BF16 = dict(rtol=1e-2, atol=1e-2)
 # decode (kernel) against prefill (plain) through 2 full-width f32 layers
 # and the 151936-wide head: summation order over d_model 2048 and d_ff 6144.
 MODEL_F32 = dict(rtol=1e-3, atol=1e-3)
+# the train loss against the cross-entropy of the forward logits: the same
+# f32 logits summed in chunks or at once (f32); in bf16 the head's matmul
+# over a chunk and over the whole sequence may round differently
+LOSS_F32, LOSS_BF16 = dict(rtol=1e-5, atol=0.0), dict(rtol=1e-2, atol=0.0)
+# the card's train step against the CPU's (f32, TF32 off): the loss to
+# rtol 1e-4; each leaf's f32 first moment (0.1 x the clipped gradient) to
+# 1e-4 of its norm; the updated parameters entrywise within 1e-5 except
+# where a gradient entry is rounding noise (|g| near eps, where the first
+# Adam step's sign may differ: at most 2.2 x lr apart), at most 1e-3 of a
+# leaf's entries
+STEP_LOSS_RTOL, STEP_MU_RTOL, STEP_PARAM_ATOL, STEP_PARAM_FRAC = 1e-4, 1e-4, 1e-5, 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -747,10 +797,13 @@ def zoo_checks(torch, dev):
 def int8_cosine(torch, dev, cfg, B, S, steps):
     """Prefill + ``steps`` teacher-forced decode steps with the int8 KV cache
     and with the model-dtype cache, one set of weights: cosine > 0.999 at
-    every step (the JAX package's criterion), argmax agreement printed."""
+    every step (the JAX package's criterion), argmax agreement printed; the
+    card's int8 codes and scales of the bf16 cache's K rows equal the
+    CPU's bit for bit."""
     import numpy as np
 
     from repro_torch.models import lm
+    from repro_torch.models.layers import _quantize_kv
 
     cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     gen = torch.Generator(device=dev)
@@ -761,6 +814,11 @@ def int8_cosine(torch, dev, cfg, B, S, steps):
     lf, sf = lm.prefill(params, cfg, toks[:, :S], max_len=S + steps)
     lq, sq = lm.prefill(params, cfg8, toks[:, :S], max_len=S + steps)
     need(sq["segments"][0]["mixer"]["k"].dtype == torch.int8, "the int8 cache is not int8")
+    k = sf["segments"][0]["mixer"]["k"][:, :, :S]
+    (qc, sc), (qh, sh) = _quantize_kv(k), _quantize_kv(k.cpu())
+    same = torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh)
+    log(f"  int8 KV codes and scales of {tuple(k.shape)} K rows equal the CPU's: {same}")
+    need(same, "int8 KV cache: the card's codes differ from the CPU's")
     cosines, agree = [], 0
     for i in range(S, S + steps):
         lf, sf = lm.decode_step(params, cfg, toks[:, i].to(torch.int32), sf)
@@ -781,6 +839,388 @@ def free(torch, dev):
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def kernel_wrappers():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ivf_scan import ivf_scan
+    from repro_torch.kernels.topk_merge import topk_merge
+
+    return {"ivf_scan": ivf_scan, "decode_attention": decode_attention, "topk_merge": topk_merge}
+
+
+def train_full(torch, dev):
+    """12a: qwen3-1.7b at full width and depth (bf16, remat), TRAIN_STEPS
+    AdamW steps through ``make_train_step`` on one repeated B x S batch, at
+    DIVERGING_LR (for the record) and at TRAIN_OPT's lr.  Returns (cfg,
+    params, batch, measured numbers)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.training.data import SyntheticTokenStream, to_device
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_config(ARCH)
+    need(cfg.remat and cfg.dtype == "bfloat16", "phase 12a: the config is not bf16 with remat")
+    shape = ShapeConfig("train_4k", TRAIN_S, TRAIN_B, "train")
+    batch = to_device(SyntheticTokenStream(cfg, shape).batch_at(0), dev)
+
+    def train(lr, timed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 20)
+        params = lm.init_params(cfg, gen, device=dev)
+        opt = init_opt_state(params)
+        step = make_train_step(cfg, OptConfig(**dict(TRAIN_OPT, lr=lr)))
+        if timed:
+            torch.cuda.reset_peak_memory_stats()
+        losses, gnorms, dts = [], [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, params, opt, stats = step(params, opt, batch)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            gnorms.append(float(stats["grad_norm"]))
+        need(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+             f"phase 12a: a loss or grad norm at lr {lr} is not finite")
+        log(f"  {ARCH} ({cfg.n_layers} layers {cfg.dtype}, remat, {cfg.param_count()} params) "
+            f"B={TRAIN_B} S={TRAIN_S}, {TRAIN_STEPS} steps at lr {lr}: losses "
+            f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in gnorms]}")
+        return params, losses, dts
+
+    params, _, _ = train(DIVERGING_LR, timed=False)
+    del params
+    free(torch, dev)
+    params, losses, dts = train(TRAIN_OPT["lr"], timed=True)
+    peak = torch.cuda.max_memory_allocated()
+    dt = sum(dts[1:]) / (len(dts) - 1)  # the first step also warms up
+    tokens = TRAIN_B * TRAIN_S
+    tflops = 6 * cfg.param_count() * tokens / dt / 1e12
+    log(f"  step times {[round(x * 1e3, 1) for x in dts]} ms; steps 2-{TRAIN_STEPS} mean "
+        f"{dt * 1e3:.1f} ms, {tokens / dt:.0f} tokens/s, model {tflops:.1f} TFLOP/s "
+        f"(6 x params x tokens / step time) = {tflops * 1e12 / BF16_FLOPS * 100:.2f}% of "
+        f"{BF16_FLOPS / 1e12:.0f}; peak max_memory_allocated {peak} bytes")
+    need(losses[-1] < losses[0], "phase 12a: the loss did not decrease")
+    return cfg, params, batch, {"step_ms": dt * 1e3, "tokens_per_s": tokens / dt,
+                                "tflops": tflops, "peak_bytes": peak}
+
+
+def compress_grads(torch, dev, cfg, params, batch):
+    """12e, first half: (a)'s gradients through ``ErrorFeedback`` (int8
+    codes per 256-block) on the card; the residual stays within half a code
+    step of each leaf, and the codes of three leaves equal the CPU's bit for
+    bit.  Returns two layers' gradients of one leaf for the 2-rank sum."""
+    from repro_torch.training.compression import ErrorFeedback, _quantize_blocks
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import leaves_with_paths
+
+    _, grads = value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    send, resid = ErrorFeedback.apply(grads, ErrorFeedback.init(grads))
+    torch.cuda.synchronize()
+    ef_ms = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for (k, g), (_, s), (_, e) in zip(leaves_with_paths(grads), leaves_with_paths(send),
+                                      leaves_with_paths(resid)):
+        amax = float(g.abs().max())
+        ok = bool(torch.isfinite(s).all()) and float(e.abs().max()) <= amax / 254.0 * (1 + 1e-5)
+        need(ok, f"phase 12e: error feedback on {k} is out of bounds")
+        worst = max(worst, float(e.abs().max()) / max(amax, 1e-30))
+    same = []
+    for leaf in (grads["embed"][:8192], grads["segments"][0]["mixer"]["wq"][0],
+                 grads["segments"][0]["ffn"]["w2"][-1]):
+        q, s, _ = _quantize_blocks(leaf, 256)
+        qc, sc, _ = _quantize_blocks(leaf.cpu(), 256)
+        same.append(torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc))
+    n = sum(g.numel() for _, g in leaves_with_paths(grads))
+    log(f"  ErrorFeedback + int8 codes over (a)'s {n} gradient entries on the card: {ef_ms:.1f} ms; "
+        f"largest residual {worst:.3e} of its leaf's absmax (bound 1/254 = {1 / 254:.3e}); codes "
+        f"and scales equal the CPU's on 3 leaves: {same}")
+    need(all(same), "phase 12e: the card's int8 codes differ from the CPU's")
+    return [grads["segments"][0]["ffn"]["w1"][r].cpu() for r in range(PSUM_WORLD)]
+
+
+def _psum_rank(rank, world, port, x, device):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.training.compression import compressed_psum_leaf
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        got = compressed_psum_leaf(x.to(dev))
+        sync(torch, dev)
+        dist.barrier()  # no rank tears the group down while a peer still uses it
+        # numpy, not a tensor: a CPU tensor would cross by a file descriptor
+        # that dies with this process
+        return {"sum": got.float().cpu().numpy(), "device": str(got.device), "dtype": str(got.dtype)}
+    finally:
+        dist.destroy_process_group()
+
+
+def psum_rank(rank, world, port, x, device, out):
+    """One rank of 12e's compressed sum, in a spawned process: reports its
+    result (or its traceback) on ``out``."""
+    try:
+        out.put((rank, _psum_rank(rank, world, port, x, device)))
+    except BaseException:
+        out.put((rank, traceback.format_exc()))
+        raise
+
+
+def compressed_sum(torch, dev, parts):
+    """12e, second half: ``compressed_psum_leaf`` over PSUM_WORLD gloo ranks
+    spawned on the one card, rank r holding ``parts[r]``; every rank's sum
+    equals the sum of the dequantized codes computed in one process, bit for
+    bit, and lies within the codes' error of the exact sum.  gloo moves the
+    CUDA tensors through the host."""
+    from repro_torch.training.compression import _quantize_blocks
+
+    t0 = time.perf_counter()
+    results = spawn_ranks(torch, psum_rank, [(x, str(dev)) for x in parts])
+    qs = [_quantize_blocks(x.to(dev), 256) for x in parts]
+    deq = torch.stack([q for q, _, _ in qs]).float() * torch.stack([s for _, s, _ in qs])[..., None]
+    pad = qs[0][2]
+    want = deq.sum(0).reshape(-1)
+    want = (want[:-pad] if pad else want).reshape(parts[0].shape).to(parts[0].dtype).float().cpu()
+    exact = sum(x.float() for x in parts)
+    err = float((want - exact).abs().max())
+    tol = sum(float(x.float().abs().max()) for x in parts) / 127.0
+    same = all(torch.equal(torch.from_numpy(r["sum"]), want) for r in results.values())
+    log(f"  compressed_psum_leaf over {PSUM_WORLD} gloo ranks on the card ({results[0]['device']} "
+        f"{results[0]['dtype']} in and out, through the host) on a {tuple(parts[0].shape)} leaf: "
+        f"{'equal' if same else 'DIFFERENT'} to the one-process dequantized sum on every rank; "
+        f"max error to the exact sum {err:.3e} (bound {tol:.3e}); {time.perf_counter() - t0:.1f}s")
+    need(same and err <= tol, "phase 12e: the compressed sum is wrong")
+
+
+def train_card_vs_cpu(torch, dev):
+    """12b: one train step of qwen3-1.7b at full width cut to 2 layers, f32,
+    from the same converted parameters on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.training.data import SyntheticTokenStream, to_device
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import leaves_with_paths, tree_map
+
+    cfg = cut_depth(get_config(ARCH), 2, dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 21)
+    cpu_params = lm.init_params(cfg, gen, device="cpu")
+    card_params = params_from_numpy(tree_map(lambda t: t.numpy(), cpu_params), cfg, device=dev)
+    batch = SyntheticTokenStream(cfg, ShapeConfig("step", CPU_STEP_S, CPU_STEP_B, "train")).batch_at(0)
+    step = make_train_step(cfg, OptConfig(**TRAIN_OPT))
+    out = {}
+    for name, params, d in (("cpu", cpu_params, torch.device("cpu")), ("card", card_params, dev)):
+        t0 = time.perf_counter()
+        loss, p, o, stats = step(params, init_opt_state(params), to_device(batch, d))
+        out[name] = (float(loss), p, o, float(stats["lr"]), time.perf_counter() - t0)
+    (lc, pc, oc, lr, sc), (lg, pg, og, _, sg) = out["cpu"], out["card"]
+    loss_ok = abs(lg - lc) <= STEP_LOSS_RTOL * abs(lc)
+    worst_mu, worst_p, worst_frac = 0.0, 0.0, 0.0
+    for (k, a), (_, b) in zip(leaves_with_paths(og["mu"]), leaves_with_paths(oc["mu"])):
+        worst_mu = max(worst_mu, float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30)))
+    for (k, a), (_, b) in zip(leaves_with_paths(pg), leaves_with_paths(pc)):
+        diff = (a.cpu() - b).abs()
+        worst_p = max(worst_p, float(diff.max()))
+        worst_frac = max(worst_frac, float((diff > STEP_PARAM_ATOL).float().mean()))
+    ok = (loss_ok and worst_mu <= STEP_MU_RTOL and worst_p <= 2.2 * lr
+          and worst_frac <= STEP_PARAM_FRAC)
+    log(f"  {ARCH} cut to 2 layers, f32, TF32 off, B={CPU_STEP_B} S={CPU_STEP_S}, one step: loss "
+        f"card {lg!r} cpu {lc!r}; first moments max rel err {worst_mu:.3e} (<= {STEP_MU_RTOL}); "
+        f"parameters max abs err {worst_p:.3e} (<= 2.2 x lr = {2.2 * lr:.1e}), largest share of "
+        f"a leaf off by > {STEP_PARAM_ATOL}: {worst_frac:.2e} (<= {STEP_PARAM_FRAC}); step {sc:.1f}s "
+        f"on the CPU, {sg:.2f}s on the card {'ok' if ok else 'FAIL'}")
+    need(ok, "phase 12b: the card's train step disagrees with the CPU's")
+
+
+def zoo_train(torch, dev):
+    """12c: each other family at full width cut to its first segment period:
+    ``train_loss`` and its gradient; the loss equals the cross-entropy of the
+    port's own forward logits and every gradient entry is finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.training.data import SyntheticTokenStream, to_device
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import leaves_with_paths
+
+    for arch, n_layers, lengths in ZOO + ((MOE_ARCH, 2, (ZOO_TRAIN_S,)),):
+        base = get_config(arch)
+        dtype = "bfloat16" if arch in ZOO_TRAIN_BF16 else "float32"
+        cfg = cut_depth(base, n_layers, dtype=dtype, **no_drop(base))
+        S = max(lengths[-1], ZOO_TRAIN_S)  # recurrentgemma: past its 2048-row window
+        B = ZOO_TRAIN_B if S <= 512 else 1
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 23)
+        params = lm.init_params(cfg, gen, device=dev)
+        batch = to_device(SyntheticTokenStream(cfg, ShapeConfig("zoo", S, B, "train")).batch_at(0),
+                          dev)
+        batch["labels"][:, -1] = -1  # a masked label in each row
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(cfg, params, batch)
+        finite = all(bool(torch.isfinite(g).all()) for _, g in leaves_with_paths(grads))
+        dt = time.perf_counter() - t0
+        with torch.no_grad():
+            logits = lm.forward(params, cfg, batch["tokens"],
+                                **{k: v for k, v in batch.items() if k.endswith("_embeds")})
+            ce = float(torch.nn.functional.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), batch["labels"].long().reshape(-1),
+                ignore_index=-1))
+        tol = LOSS_BF16 if dtype == "bfloat16" else LOSS_F32
+        ok = finite and abs(float(loss) - ce) <= tol["rtol"] * abs(ce)
+        log(f"  {arch} ({cfg.n_layers} layers {dtype}) B={B} S={S}: train loss {float(loss):.6f}, "
+            f"forward cross-entropy {ce:.6f} (rtol {tol['rtol']}); gradients finite: {finite}; "
+            f"loss + backward {dt:.2f}s {'ok' if ok else 'FAIL'}")
+        need(ok, f"phase 12c: {arch}'s train loss or gradients are wrong")
+        del params, grads, logits, batch
+        free(torch, dev)
+
+
+def checkpoint_resume(torch, dev, tmp):
+    """12d: qwen3-1.7b at full width cut to 2 layers (bf16): 3 steps
+    uninterrupted, against 2 steps, a save, a restore onto the card through
+    ``ElasticRunner`` (the restore's tree built on the meta device) and the
+    third step: the same parameters, moments and losses, bit for bit."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.elastic import ElasticConfig, ElasticRunner
+    from repro_torch.models import lm
+    from repro_torch.training.data import SyntheticTokenStream, to_device
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import leaves_with_paths
+
+    cfg = cut_depth(get_config(ARCH), 2)
+    ds = SyntheticTokenStream(cfg, ShapeConfig("ckpt", 512, 2, "train"))
+    step = make_train_step(cfg, OptConfig(**TRAIN_OPT))
+
+    def init_fn(d):
+        gen = None
+        if torch.device(d).type != "meta":
+            gen = torch.Generator(device=d)
+            gen.manual_seed(SEED + 22)
+        params = lm.init_params(cfg, gen, device=d)
+        return {"params": params, "opt": init_opt_state(params)}
+
+    def run(state, steps):
+        p, o, losses = state["params"], state["opt"], []
+        for s in steps:
+            loss, p, o, _ = step(p, o, to_device(ds.batch_at(s), dev))
+            losses.append(float(loss))
+        return {"params": p, "opt": o}, losses
+
+    ref, ref_losses = run(init_fn(dev), range(3))
+    shutil.rmtree(tmp, ignore_errors=True)
+    runner = ElasticRunner(ElasticConfig(ckpt_dir=str(tmp), save_every=2), lambda: dev,
+                           lambda d: step)
+    _, _, state, start = runner.resume_or_init(init_fn)
+    need(start == 0, "phase 12d: a fresh directory resumed")
+    state, losses = run(state, range(2))
+    t0 = time.perf_counter()
+    path = runner.maybe_save(2, state)
+    save_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in Path(path).iterdir())
+    del state
+    free(torch, dev)
+    t0 = time.perf_counter()
+    _, _, state, start = runner.resume_or_init(init_fn)
+    restore_s = time.perf_counter() - t0
+    need(start == 2 and state["params"]["embed"].device.type == dev.type,
+         "phase 12d: the runner did not resume onto the card from step 2")
+    state, more = run(state, [2])
+    la, lb = leaves_with_paths(state), leaves_with_paths(ref)
+    same = [k for (k, a), (_, b) in zip(la, lb) if not torch.equal(a, b)] == []
+    worst = max(float((a.float() - b.float()).abs().max()) for (_, a), (_, b) in zip(la, lb))
+    log(f"  {ARCH} cut to 2 layers ({cfg.dtype}), B=2 S=512: losses {losses + more} resumed, "
+        f"{ref_losses} uninterrupted; saved {size} bytes in {save_s:.1f}s, restored in "
+        f"{restore_s:.1f}s; state after step 3 {'bit-identical' if same else 'DIFFERS'} "
+        f"(max abs diff {worst:.3e}; checked bit for bit, without "
+        f"torch.use_deterministic_algorithms)")
+    need(same and losses + more == ref_losses, "phase 12d: the resumed run differs from the "
+         "uninterrupted one")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_train_launcher(tmp):
+    """12e: the train launcher on the card as a user runs it, then again
+    after its last checkpoint is lost: the rerun resumes from step 3 and
+    ends at the first run's loss."""
+    import os
+    import re
+    import shutil
+
+    ckpt = tmp / "launch"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_LAUNCHER_ARGS,
+           "--ckpt-dir", str(ckpt)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    lasts = []
+    for run in range(2):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=LAUNCHER_TIMEOUT_S)
+        log(f"  {' '.join(cmd[1:])}: exit {r.returncode} in {time.perf_counter() - t0:.1f}s; "
+            + " | ".join(r.stdout.splitlines()))
+        need(r.returncode == 0, f"the train launcher failed:\n{r.stderr[-3000:]}")
+        m = re.search(r"last loss (\S+)$", r.stdout.strip())
+        need(m is not None, "the train launcher printed no last loss")
+        lasts.append(float(m.group(1)))
+        if run == 0:
+            need(sorted(p.name for p in ckpt.iterdir()) == ["step_00000003", "step_00000006"],
+                 "the train launcher did not save steps 3 and 6")
+            shutil.rmtree(ckpt / "step_00000006")
+        else:
+            need("resumed from step 3" in r.stdout, "the train launcher did not resume from step 3")
+    need(abs(lasts[1] - lasts[0]) <= 1e-5 * abs(lasts[0]),
+         f"the resumed launcher ended at loss {lasts[1]}, the first run at {lasts[0]}")
+
+
+def train_phase(torch, dev, out_dir):
+    """Phase 12; returns each kernel's launches over it (none expected) and
+    12a's numbers."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    cfg, params, batch, numbers = train_full(torch, dev)
+    parts = compress_grads(torch, dev, cfg, params, batch)
+    del params, batch
+    free(torch, dev)
+    log(f"  12a + 12e's codes took {time.perf_counter() - t0:.1f}s")
+    compressed_sum(torch, dev, parts)
+    train_card_vs_cpu(torch, dev)
+    free(torch, dev)
+    zoo_train(torch, dev)
+    checkpoint_resume(torch, dev, out_dir / "ckpt")
+    free(torch, dev)
+    run_train_launcher(out_dir)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    need(all(n == 0 for n in launches.values()),
+         f"phase 12 launched a kernel the training path should not reach: {launches}")
+    return launches, numbers
 
 
 # ---------------------------------------------------------------------------
@@ -867,17 +1307,25 @@ def sharded_rank(rank, world, port, q, shared, k, out):
 
 def run_ranks(torch, q, slab, valid, k, world):
     """Spawn ``world`` ranks, rank r on the r-th contiguous tile range of
-    ``slab``; returns their results by rank.  Fails if a rank fails, exits
-    without a result or does not report within ``RANK_TIMEOUT_S``."""
+    ``slab``; returns their results by rank."""
+    Cl = slab.shape[0] // world
+    return spawn_ranks(torch, sharded_rank,
+                       [(q, [slab[r * Cl:(r + 1) * Cl], valid[r * Cl:(r + 1) * Cl]], k)
+                        for r in range(world)])
+
+
+def spawn_ranks(torch, target, rank_args):
+    """Spawn one process a rank, running ``target(rank, world, port,
+    *rank_args[rank], out)`` (gloo's rendezvous at localhost:port); returns
+    their results by rank.  Fails if a rank fails, exits without a result or
+    does not report within ``RANK_TIMEOUT_S``."""
     import torch.multiprocessing as tmp
 
-    Cl = slab.shape[0] // world
+    world = len(rank_args)
     ctx = tmp.get_context("spawn")
     out = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=sharded_rank, daemon=True,
-                         args=(r, world, port, q,
-                               [slab[r * Cl:(r + 1) * Cl], valid[r * Cl:(r + 1) * Cl]], k, out))
+    procs = [ctx.Process(target=target, daemon=True, args=(r, world, port, *rank_args[r], out))
              for r in range(world)]
     results = {}
     deadline = time.monotonic() + RANK_TIMEOUT_S
@@ -1563,26 +2011,37 @@ def main() -> int:
     zoo_launches = {"decode_attention": attn_ops.decode_attention.launches}
     log(f"  phase 11 took {time.perf_counter() - t0:.1f}s")
 
+    # 12. training ---------------------------------------------------------
+    log("[12] training: qwen3-1.7b at full width and depth; card vs CPU; the zoo's train loss; "
+        "checkpoint/resume; gradient compression; the train launcher")
+    t0 = time.perf_counter()
+    train_launches, _ = train_phase(torch, dev, ROOT / "build" / "phase12")
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f}s")
+
     # launches: phase 4's main path, phase 9's wall-clock run, phase 10's
-    # served path and phase 11's zoo, each read with the counts set to 0 just
-    # before it; topk_merge's from phase 7
+    # served path, phase 11's zoo and phase 12's training (none), each read
+    # with the counts set to 0 just before it; topk_merge's from phase 7
     log(f"  launches: phase 4 {launches}, phase 9 {wc_launches}, phase 10 {moe_launches}, "
-        f"phase 11 {zoo_launches}, phase 7 topk_merge {merge_launches}")
+        f"phase 11 {zoo_launches}, phase 12 {train_launches}, phase 7 topk_merge "
+        f"{merge_launches}")
     kernels = [
         {"name": "ivf_scan", "route": "cuda", "source": "src/repro_torch/csrc/ivf_scan.cu",
          "replaces": "src/repro/kernels/ivf_scan/ivf_scan.py:111",
-         "launches": launches["ivf_scan"] + wc_launches["ivf_scan"] + moe_launches["ivf_scan"],
+         "launches": (launches["ivf_scan"] + wc_launches["ivf_scan"] + moe_launches["ivf_scan"]
+                      + train_launches["ivf_scan"]),
          "max_abs_err": ivf_err, **t["ivf_scan"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/decode_attention.py:80",
          "launches": (launches["decode_attention"] + wc_launches["decode_attention"]
-                      + moe_launches["decode_attention"] + zoo_launches["decode_attention"]),
+                      + moe_launches["decode_attention"] + zoo_launches["decode_attention"]
+                      + train_launches["decode_attention"]),
          "max_abs_err": attn_err,
          **t["decode_attention"]},
         {"name": "topk_merge", "route": "cuda", "source": "src/repro_torch/csrc/topk_merge.cu",
          "replaces": "src/repro/kernels/topk_merge/topk_merge.py:50",
-         "launches": merge_launches, "max_abs_err": merge_err, **t["topk_merge"]},
+         "launches": merge_launches + train_launches["topk_merge"], "max_abs_err": merge_err,
+         **t["topk_merge"]},
     ]
     log(f"  total {time.perf_counter() - t_all:.1f}s")
     need(all(np.isfinite([r["ms"], r["plain_ms"], r["bound_ms"]]).all() for r in kernels),

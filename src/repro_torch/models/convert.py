@@ -1,4 +1,5 @@
-"""Convert the JAX package's parameter pytree into the port's parameters.
+"""Convert the JAX package's parameter pytree (and its AdamW state) into
+the port's.
 
 The port keeps the JAX layout, so no tensor is transposed: every weight is
 ``(in, out)`` and applied as ``x @ W``, the tied head is ``embed.T``, and a
@@ -37,3 +38,13 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     if len(params["segments"]) != len(cfg.segments):
         raise ValueError("params and config disagree on the number of segments")
     return params
+
+
+def opt_state_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
+    """``tree``: the JAX package's AdamW state ``{"mu", "nu", "step"}`` with
+    numpy (or array-like) leaves, e.g. ``jax.tree.map(np.asarray, opt)``: f32
+    moments shaped as the parameters and the int32 step."""
+    dev = resolve_device(device)
+    return {"mu": params_from_numpy(tree["mu"], cfg, dev),
+            "nu": params_from_numpy(tree["nu"], cfg, dev),
+            "step": _tensor(tree["step"], dev)}

@@ -11,10 +11,10 @@ Conventions (as in the JAX package's ``models/layers.py``)
 * Apply functions are mode-polymorphic:
 
     mode='forward'  full sequence, no state (the encoder, reference logits)
+    mode='train'    the same computation as 'forward', under autograd: no
+                    state, nothing written in place into a parameter
     mode='prefill'  full sequence, returns a decode state
     mode='decode'   one new token per sequence, consumes + returns state
-
-  ``mode='train'`` raises: training is ROADMAP.md queue A item 6.
 * Prefill attention is plain PyTorch (einsum, then an f32 softmax with the
   ``-1e30`` mask).  Decode attention over a K/V cache (full, ring window,
   or int8 dequantized to the model dtype) is the Hopper kernel
@@ -44,7 +44,8 @@ from repro_torch.kernels.decode_attention import decode_attention
 Params = dict
 f32 = torch.float32
 
-MODES = ("forward", "prefill", "decode")
+MODES = ("forward", "train", "prefill", "decode")
+STATELESS = ("forward", "train")  # full sequence, no decode state
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -52,8 +53,6 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_mode(mode: str) -> None:
-    if mode == "train":
-        raise NotImplementedError("mode 'train': training is ROADMAP.md queue A item 6")
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
 
@@ -259,9 +258,11 @@ def attention_init_state(cfg: ModelConfig, seg: Segment, batch: int, max_len: in
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, KV, dh) -> (int8 values, per-(token, head) f32 scale).
-    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.  The divisor
+    is a tensor on x's device: CUDA divides by a Python scalar as a product
+    with its reciprocal, which can round a scale one ulp off the CPU's."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    scale = torch.clamp(xf.abs().amax(-1) / torch.full((), 127.0, device=x.device), min=1e-8)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -311,7 +312,7 @@ def apply_attention(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, 
     if mode != "decode":
         out = blocked_attention(q, k, v, causal=causal, window=window, q_chunk=cfg.attn_q_chunk)
         out = out.reshape(B, S, H * dh) @ p["wo"]
-        if mode == "forward":
+        if mode in STATELESS:
             return out, None
         rows = min(window, max_len) if window else max_len  # as attention_init_state
         st = {"k": _prefill_cache(k, rows, window), "v": _prefill_cache(v, rows, window)}
@@ -436,7 +437,7 @@ def apply_mla(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *, mod
         vpad = F.pad(v, (0, np_ + rp - vd))
         out = blocked_attention(q, k, vpad, causal=True, q_chunk=cfg.attn_q_chunk)[..., :vd]
         y = out.reshape(B, S, H * vd) @ p["wo"]
-        if mode == "forward":
+        if mode in STATELESS:
             return y, None
         return y, {"ckv": _prefill_cache(ckv, max_len, 0), "kpe": _prefill_cache(kpe, max_len, 0)}
 
@@ -576,3 +577,13 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.n_shared_experts:
         out = out + (_act(cfg, xt @ p["sw1"]) * (xt @ p["sw3"])) @ p["sw2"]
     return out.reshape(B, S, d)
+
+
+def moe_load_balance_loss(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary loss over router logits (T, E): E times the
+    dot product of each expert's share of top-1 choices and its mean
+    probability (the JAX package exports it for training; its train step
+    does not add it to the loss)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    frac_tokens = F.one_hot(probs.argmax(-1), cfg.n_experts).float().mean(0)
+    return cfg.n_experts * (frac_tokens * probs.mean(0)).sum()

@@ -9,6 +9,7 @@ loop over that axis.
 Entry points (functions of ``(params, cfg, ...)``, as in the JAX package):
 
   init_params(cfg, generator, device=...)              -> params dict
+  train_loss(params, cfg, batch)                       -> scalar f32 loss
   forward(params, cfg, tokens, ...)                    -> logits (B, S, V)
   prefill(params, cfg, tokens, max_len=..., ...)       -> (last_logits, DecodeState)
   decode_step(params, cfg, tokens, state)              -> (logits, DecodeState)
@@ -23,6 +24,13 @@ int8 rows and scales, MLA latents, RWKV ``S``/``x_prev``, RG-LRU
 ``decode_step`` updates ``state`` in place: K/V rows are scattered into the
 cache, and the recurrent states, which each step computes anew, are copied
 into their slab.
+
+``train_loss`` runs under autograd: each layer takes its parameters as views
+of the stacked leaves (``unbind``), so a layer's gradient lands in its row
+of the stacked leaf; with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (the JAX ``jax.checkpoint``), and the
+cross-entropy is computed in ``cfg.loss_chunk`` sequence chunks, each
+recomputed in the backward pass, so the (B, S, V) logits never exist whole.
 """
 from __future__ import annotations
 
@@ -30,11 +38,14 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, Segment
 from repro_torch.device import resolve_device
 from repro_torch.models import rglru, rwkv6
 from repro_torch.models.layers import (
+    STATELESS,
     Init,
     apply_attention,
     apply_cross_attention,
@@ -102,11 +113,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *
     Draws from ``generator`` (a ``torch.Generator`` on ``device``), or from a
     new one seeded with ``seed``.  The numbers differ from ``jax.random``'s;
     parity tests convert the JAX parameters instead (``models.convert``).
+    ``device="meta"`` gives the tree's shapes and dtypes and draws nothing
+    (a resume restores the values: ``distributed.elastic``).
     """
-    dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
+        if generator is None:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(seed)
     mk = Init(generator, dev, dtype_of(cfg))
     params: dict = {
         "embed": mk.normal((cfg.vocab_size, cfg.d_model), scale=0.02),
@@ -133,6 +148,15 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {key: _layer(val, i) for key, val in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int) -> list:
+    """A stacked tree -> its n per-layer trees, each leaf a view; the
+    gradients of the n views are stacked into the leaf's in one step."""
+    if isinstance(tree, dict):
+        per_key = {key: _unbind(val, n) for key, val in tree.items()}
+        return [{key: per_key[key][i] for key in tree} for i in range(n)]
+    return tree.unbind(0)
 
 
 def _stack(trees: list):
@@ -169,12 +193,12 @@ def _apply_block(cfg, seg, p, x, *, mode, positions, state, cache_len, enc_out, 
         h = apply_norm(cfg, p["norm_x"], x)
         enc_kv = st_in["enc_kv"] if mode == "decode" else encode_cross_kv(cfg, p["cross"], enc_out)
         x = x + apply_cross_attention(cfg, p["cross"], h, enc_kv)
-        if mode != "forward":
+        if mode not in STATELESS:
             new_state["enc_kv"] = enc_kv  # decode carries it through unchanged
     h = apply_norm(cfg, p["norm2"], x)
     ffn_out, ffn_st = apply_ffn(cfg, seg, p["ffn"], h, state=st_in.get("ffn"), mode=mode)
     x = x + ffn_out
-    if ffn_st is not None and mode != "forward":
+    if ffn_st is not None and mode not in STATELESS:
         new_state["ffn"] = ffn_st
     return x, new_state
 
@@ -183,7 +207,16 @@ def _run_segment(cfg, seg, sp, x, *, mode, positions, stacked_state=None, cache_
                  enc_out=None, max_len=0):
     """A segment's layers in order.  Returns (x, stacked state or None):
     prefill stacks every layer's state; decode writes it into
-    ``stacked_state``."""
+    ``stacked_state``; train keeps none and, with ``cfg.remat``, runs each
+    layer under a checkpoint (its activations recomputed in backward)."""
+    if mode == "train":
+        def body(lp, h):
+            return _apply_block(cfg, seg, lp, h, mode=mode, positions=positions, state=None,
+                                cache_len=None, enc_out=enc_out, max_len=max_len)[0]
+
+        for lp in _unbind(sp, seg.repeat):
+            x = checkpoint(body, lp, x, use_reentrant=False) if cfg.remat else body(lp, x)
+        return x, None
     states = []
     for i in range(seg.repeat):
         st = None if stacked_state is None else _layer(stacked_state, i)
@@ -203,7 +236,9 @@ def _run_segment(cfg, seg, sp, x, *, mode, positions, stacked_state=None, cache_
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()].to(dtype_of(cfg))
+    # F.embedding, not indexing: its backward sums repeated tokens' rows by
+    # sorting, where the indexing backward accumulates with atomics on CUDA
+    x = F.embedding(tokens.long(), params["embed"]).to(dtype_of(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
@@ -215,7 +250,8 @@ def _head_weights(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["lm_head"]
 
 
-def _encoder_forward(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor) -> torch.Tensor:
+def _encoder_forward(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor,
+                     mode: str = "forward") -> torch.Tensor:
     """Stub-frontend encoder: enc_embeds (B, Se, d) precomputed frames."""
     if enc_embeds is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder model: pass enc_embeds (B, Se, d)")
@@ -223,12 +259,12 @@ def _encoder_forward(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor) -
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     x = x + sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
     for seg, sp in zip(cfg.encoder_segments, params["encoder"]["segments"]):
-        x, _ = _run_segment(cfg, seg, sp, x, mode="forward", positions=pos)
+        x, _ = _run_segment(cfg, seg, sp, x, mode=mode, positions=pos)
     return apply_norm(cfg, params["encoder"]["final_norm"], x)
 
 
 def _forward(cfg, params, tokens, *, mode, prefix_embeds=None, enc_embeds=None, max_len=0):
-    """Shared forward/prefill trunk.  Returns (h, states, n_prefix)."""
+    """Shared forward/train/prefill trunk.  Returns (h, states, n_prefix)."""
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     n_prefix = 0
@@ -239,13 +275,53 @@ def _forward(cfg, params, tokens, *, mode, prefix_embeds=None, enc_embeds=None, 
     positions = torch.arange(St, device=x.device)[None, :].expand(B, St)
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
-    enc_out = _encoder_forward(cfg, params, enc_embeds) if cfg.is_encoder_decoder else None
+    enc_mode = "train" if mode == "train" else "forward"
+    enc_out = (_encoder_forward(cfg, params, enc_embeds, enc_mode) if cfg.is_encoder_decoder
+               else None)
     states = []
     for seg, sp in zip(cfg.segments, params["segments"]):
         x, st = _run_segment(cfg, seg, sp, x, mode=mode, positions=positions, enc_out=enc_out,
                              max_len=max_len)
         states.append(st)
     return apply_norm(cfg, params["final_norm"], x), states, n_prefix
+
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(h: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor):
+    """(sum of the masked token NLLs, count of unmasked labels), both f32."""
+    logits = (h @ w_head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - tgt) * mask).sum(), mask.sum()
+
+
+def _chunked_xent(cfg: ModelConfig, h: torch.Tensor, w_head: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the labels >= 0, in ``cfg.loss_chunk``
+    sequence chunks, each recomputed in backward: one chunk's (B, ck, V)
+    logits at a time."""
+    ck = min(cfg.loss_chunk, h.shape[1])
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, h.shape[1], ck):
+        t, c = checkpoint(_xent_chunk, h[:, c0:c0 + ck], w_head, labels[:, c0:c0 + ck],
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """batch: tokens (B, S) int, labels (B, S) int (-1 = masked), optional
+    prefix_embeds (B, P, d) [VLM: the first P positions carry no loss] and
+    enc_embeds (B, Se, d) [enc-dec].  Returns the scalar f32 mean NLL."""
+    h, _, n_prefix = _forward(cfg, params, batch["tokens"], mode="train",
+                              prefix_embeds=batch.get("prefix_embeds"),
+                              enc_embeds=batch.get("enc_embeds"))
+    return _chunked_xent(cfg, h[:, n_prefix:], _head_weights(cfg, params), batch["labels"])
 
 
 # ---------------------------------------------------------------------------

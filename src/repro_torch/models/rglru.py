@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, Segment
-from repro_torch.models.layers import Init, check_mode, dtype_of, gelu
+from repro_torch.models.layers import STATELESS, Init, check_mode, dtype_of, gelu
 
 f32 = torch.float32
 _C = 8.0
@@ -93,7 +93,7 @@ def apply_rglru(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor, *, mod
         a, b = _gates(p, _causal_conv(p, branch))
         h = linear_scan(a, b)
         out = (h.to(x.dtype) * gate) @ p["w_out"]
-        if mode == "forward":
+        if mode in STATELESS:
             return out, None
         cw = cfg.conv_width
         tail = branch[:, -(cw - 1):, :]

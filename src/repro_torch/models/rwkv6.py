@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, Segment
-from repro_torch.models.layers import Init, check_mode, dtype_of
+from repro_torch.models.layers import STATELESS, Init, check_mode, dtype_of
 
 f32 = torch.float32
 
@@ -138,7 +138,7 @@ def apply_timemix(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor, *, m
         S0 = torch.zeros((B, H, N, N), dtype=f32, device=x.device)
         y, S_fin = _chunk_scan(r.float(), k.float(), v.float(), lw, u, S0, chunk=cfg.rwkv_chunk)
         out = (_group_norm(cfg, p, y).to(x.dtype) * g) @ p["wo"]
-        if mode == "forward":
+        if mode in STATELESS:
             return out, None
         return out, {"S": S_fin, "x_prev": x[:, -1:, :]}
 

@@ -95,6 +95,14 @@ def test_distributed_numpy_parts_equal_their_sources(name):
     assert _segment(PORT / rel, name) == _rename(_segment(SRC / "repro" / rel, name))
 
 
+@pytest.mark.parametrize("name", ["DataConfig", "SyntheticTokenStream"])
+def test_data_stream_equals_its_source(name):
+    """``training/data.py`` keeps the JAX package's numpy stream as a copy
+    (the same bits for a step) and drops its unused JAX imports."""
+    rel = Path("training") / "data.py"
+    assert _segment(PORT / rel, name) == _rename(_segment(SRC / "repro" / rel, name))
+
+
 def test_block_saliency_equals_its_source():
     """``training/compression.py`` keeps only the serving host path's
     ``block_saliency``, a copy of the JAX package's function."""
@@ -130,21 +138,28 @@ def test_every_port_import_target_exists():
 
 
 def test_port_runs_with_jax_and_repro_blocked(tmp_path):
+    """... and trains without msgpack or ml_dtypes, which the card's machine
+    lacks (the JAX checkpoint writes msgpack and bf16 through ml_dtypes)."""
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['repro'] = None\n"
+        "for name in ('jax', 'repro', 'msgpack', 'ml_dtypes'):\n"
+        "    sys.modules[name] = None\n"
         "import repro_torch\n"
         "import repro_torch.obs, repro_torch.crossreq, repro_torch.serving.ingress\n"
-        "import repro_torch.examples.serve_rag_e2e\n"
-        "from repro_torch.launch import serve\n"
+        "import repro_torch.examples.serve_rag_e2e, repro_torch.examples.train_lm\n"
+        "import repro_torch.training.compression, repro_torch.training.checkpoint\n"
+        "from repro_torch.launch import serve, train\n"
         "from repro_torch.kernels.ivf_scan import ivf_scan\n"
         "m = serve.main(['--device', 'cpu', '--n-requests', '4', '--max-new', '4',\n"
         "                '--workflow', 'irg', '--cache-update-interval', '1',\n"
         "                '--cache-transit', '0', '--arrival-gap-ms', '1000'])\n"
         "assert m.finished == 4 and ivf_scan.plain_calls > 0\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) for k in sys.modules\n"
-        "               if sys.modules[k] is not None)\n"
+        "for args in (['--steps', '2', '--save-every', '1'], ['--steps', '3']):\n"
+        "    out = train.main(['--arch', 'qwen3-1.7b', '--reduced', '--device', 'cpu',\n"
+        "                      '--ckpt-dir', 'ckpt', *args])\n"
+        "assert out['start'] == 2 and list(out['losses']) == [2]\n"
+        "assert not any(k.split('.')[0] in ('jax', 'repro', 'msgpack', 'ml_dtypes')\n"
+        "               for k in sys.modules if sys.modules[k] is not None)\n"
         "print('ISOLATED-OK')\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
@@ -158,9 +173,11 @@ def test_entry_points_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device='cuda' is valid here")
     from repro_torch.configs import get_config
-    from repro_torch.examples import serve_rag_e2e
-    from repro_torch.launch import serve
+    from repro_torch.examples import serve_rag_e2e, train_lm
+    from repro_torch.launch import serve, train
     from repro_torch.models import lm
+    from repro_torch.models.convert import opt_state_from_numpy
+    from repro_torch.training.checkpoint import restore_checkpoint
     from repro_torch.retrieval import HybridRetrievalEngine, IVFIndex
     from repro_torch.serving.engine import GenerationEngine
 
@@ -175,6 +192,10 @@ def test_entry_points_refuse_cuda_without_a_card():
                  lambda: lm.init_params(cfg),
                  lambda: serve.main(["--n-requests", "1"]),
                  lambda: serve.main(["--wallclock", "--replay-check", "--n-requests", "1"]),
-                 lambda: serve_rag_e2e.main(["--smoke", "--crossreq"])):
+                 lambda: serve_rag_e2e.main(["--smoke", "--crossreq"]),
+                 lambda: train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"]),
+                 lambda: train_lm.main(["--steps", "1"]),
+                 lambda: restore_checkpoint("no-such-dir"),
+                 lambda: opt_state_from_numpy({"mu": {}, "nu": {}, "step": 0}, cfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

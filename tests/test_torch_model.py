@@ -117,7 +117,9 @@ def test_entry_points_take_cpu_when_asked(models):
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-lite-16b", "rwkv6-1.6b",
                                   "recurrentgemma-2b"])
 def test_train_mode_raises(arch):
-    """Every mixer and FFN serves; only training is outside the port."""
+    """Every mixer and FFN serves and trains: mode 'train' computes what
+    'forward' does and the mixer keeps no state; a mode the layers do not
+    know raises."""
     from repro_torch.models import layers
     from repro_torch.models.lm import _MIXER_APPLY
 
@@ -125,9 +127,14 @@ def test_train_mode_raises(arch):
     params = lm.init_params(cfg, seed=0, device="cpu")
     seg = cfg.segments[-1]
     p = lm._layer(params["segments"][-1], 0)
-    x = torch.zeros((1, 4, cfg.d_model))
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator().manual_seed(0))
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
-        _MIXER_APPLY[seg.mixer](cfg, seg, p["mixer"], x, mode="train", positions=pos)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
-        layers.apply_ffn(cfg, seg, p["ffn"], x, mode="train")
+    mixer = lambda mode: _MIXER_APPLY[seg.mixer](cfg, seg, p["mixer"], x, mode=mode,  # noqa: E731
+                                                 positions=pos)
+    ffn = lambda mode: layers.apply_ffn(cfg, seg, p["ffn"], x, mode=mode)  # noqa: E731
+    out, st = mixer("train")
+    assert st is None and torch.equal(out, mixer("forward")[0])
+    assert torch.equal(ffn("train")[0], ffn("forward")[0])
+    for apply in (mixer, ffn):
+        with pytest.raises(ValueError, match="is not one of"):
+            apply("training")
