@@ -99,9 +99,34 @@
    training path (its attention is the plain blocked attention, as the JAX
    package's is jnp): each kernel's launches over phase 12 are read and
    must be 0.
+13. The mesh: (a) ``launch.dryrun`` traces one step of qwen3-1.7b train_4k
+   and decode_32k and deepseek-v2-lite-16b train_4k on the production mesh
+   (data=32, model=8; a fake group of 256 ranks and fake tensors, each cell
+   a process of its own, all at once): per-device argument bytes (equal to
+   the shard sizes reckoned by hand from the specs) and peak, FLOPs,
+   collectives by op and mesh dim, and the roofline terms (H100 data-sheet
+   figures); the model FLOPs must be 6·N·D (train) or 2·N·D (decode).  (b)
+   A mesh of ``MESH_SHAPE`` ranks spawned on the card (one NCCL rank: see
+   the note at ``MESH_BACKEND``; the (2, 2) mesh of 4 gloo processes runs in
+   the CPU tests), with qwen3-1.7b at full width cut to 2 layers in f32: one
+   train step at B 4 x S 256 through the DTensor path against the
+   unsharded step, and a prefill of B 4 x 256 into a 512-row cache laid
+   out by the decode-state rules, then 8 greedy decode steps, whose tokens
+   must equal the unsharded run's; every rank must launch
+   ``decode_attention`` on its block, and the kernel's log-sum-exp output
+   on that block is held against the plain version.  (c) ``launch.train`` on
+   the card through its host mesh ((1, 1)) for 3 steps: its losses must
+   equal the one-device loop's (no mesh).  Phase 3 also holds the
+   log-sum-exp output against the plain version (one chunk, split, forced
+   chunks, -inf at length 0), and phase 6 times the kernel with it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero without it.
+
+    python3 chip_smoke.py --mesh 2,2
+
+runs phase 13b alone on a (2, 2) NCCL mesh of 4 cards, one rank a card
+(the sequence-sharded decode combining its ranks' blocks for real).
 """
 from __future__ import annotations
 
@@ -185,6 +210,27 @@ ZOO_TRAIN_BF16 = ("llama4-scout-17b-a16e", "qwen1.5-110b")
 PSUM_WORLD = 2
 TRAIN_LAUNCHER_ARGS = ("--arch", "qwen3-1.7b", "--reduced", "--steps", "6", "--save-every", "3")
 
+# The mesh (phase 13): the dry-run's cells on the production mesh of 256
+# ranks (a fake group, no data moves); a mesh on the one card running
+# qwen3-1.7b at full width cut to 2 layers, f32: one train step at B 4 x S
+# 256 (lr 1e-3, no warmup), a prefill of B 4 x 256 into a 512-row cache and
+# 8 greedy decode steps; the train launcher at its reduced config for 3
+# steps through the host mesh.  The card's mesh is one NCCL rank, (1, 1):
+# a (2, 2) mesh of 4 gloo ranks on the one card (NCCL refuses two ranks on
+# one device) dies in its first all-gather, since gloo's functional
+# all_gather_into_tensor on CUDA tensors ends in a segmentation fault
+# (torch 2.11; the other collectives DTensor uses run:
+# ``python -m repro_torch.scripts.probe_collectives``), and collectives are
+# not staged through the host.  The (2, 2) mesh runs in the CPU tests.
+MESH_BACKEND, MESH_SHAPE = "nccl", (1, 1)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
+                ("deepseek-v2-lite-16b", "train_4k"))
+DRYRUN_TIMEOUT_S = 400
+MESH_LAYERS, MESH_TRAIN_B, MESH_TRAIN_S = 2, 4, 256
+MESH_DECODE_B, MESH_PROMPT, MESH_MAX_LEN, MESH_STEPS = 4, 256, 512, 8
+MESH_OPT = dict(lr=1e-3, warmup_steps=1)
+MESH_LAUNCHER_ARGS = ("--arch", "qwen3-1.7b", "--reduced", "--steps", "3", "--save-every", "100")
+
 # Tolerances of the kernel-vs-plain comparisons.
 # f32: the kernel and the plain version differ only in summation order.
 F32 = dict(rtol=1e-4, atol=1e-5)
@@ -196,6 +242,17 @@ IVF_BF16 = dict(rtol=1e-4, atol=1e-4)
 # to bf16 once; two f32 values a few ulps apart may round one bf16 step
 # (2^-8 relative) apart.
 ATTN_BF16 = dict(rtol=1e-2, atol=1e-2)
+# decode_attention's log-sum-exp output: both sides compute it in f32 from
+# the same inputs (the kernel in base 2 over its chunks, the plain version
+# with torch.logsumexp), so only rounding in the sums differs.
+ATTN_LSE = dict(rtol=1e-5, atol=1e-4)
+# the (2, 2) mesh's train step against the unsharded step on the card (f32,
+# TF32 off): the loss to rtol 1e-5; the parameters within atol 1e-5 except
+# at most 1e-4 of the entries, and those within 2 x lr: AdamW's first step
+# divides each gradient entry by its own magnitude, so an entry that is
+# rounding noise (the sums over ranks run in another order) moves by up to
+# lr either way.
+MESH_LOSS_RTOL, MESH_PARAM_ATOL, MESH_PARAM_FRAC = 1e-5, 1e-5, 1e-4
 # decode (kernel) against prefill (plain) through 2 full-width f32 layers
 # and the 151936-wide head: summation order over d_model 2048 and d_ff 6144.
 MODEL_F32 = dict(rtol=1e-3, atol=1e-3)
@@ -299,6 +356,26 @@ def check_attn(torch, ops, ref, q, k, v, lengths, tol, what, chunk=None):
         f"(rtol={tol['rtol']}, atol={tol['atol']}) {'ok' if ok else 'FAIL'}")
     need(ok and torch.isfinite(out).all(), f"decode_attention {what} disagrees with the plain version")
     return err
+
+
+def check_attn_lse(torch, ops, ref, q, k, v, lengths, tol, what, chunk=None):
+    """The kernel's (output, log-sum-exp) against the plain version's; a
+    length of 0 must give zeros and -inf."""
+    out, lse = ops.decode_attention(q, k, v, lengths, return_lse=True, _chunk=chunk)
+    torch.cuda.synchronize()
+    exp, exp_lse = ref.decode_attention_ref(q, k, v, lengths, return_lse=True)
+    err = float((out.float() - exp.float()).abs().max())
+    empty = lengths == 0
+    fin = ~empty[:, None].expand_as(lse)
+    lse_err = float((lse[fin] - exp_lse[fin]).abs().max())
+    ok = (bool(torch.allclose(out.float(), exp.float(), **tol))
+          and bool(torch.allclose(lse[fin], exp_lse[fin], **ATTN_LSE))
+          and bool(torch.isneginf(lse[~fin]).all()) and bool((out[empty] == 0).all()))
+    log(f"  decode_attention {what}: out max_abs_err={err:.3e}, lse max_abs_err={lse_err:.3e} "
+        f"(rtol={ATTN_LSE['rtol']}, atol={ATTN_LSE['atol']}), length 0 -> -inf "
+        f"{'ok' if ok else 'FAIL'}")
+    need(ok, f"decode_attention {what}: the log-sum-exp output disagrees with the plain version")
+    return max(err, lse_err)
 
 
 def same_bits_twice(torch, fn, what):
@@ -429,6 +506,17 @@ def attn_cases(torch, attn_ops, attn_ref, dev):
         torch.cuda.synchronize()
         need(bool((out[0] == 0).all()), f"decode_attention length 0 (chunk={chunk}): not zeros")
     log("  decode_attention length 0: zeros (default chunk and chunk=7)")
+    # the log-sum-exp output, at the qwen3 shape (one chunk and split), at
+    # forced chunks, and -inf for a length of 0
+    q, k, v = make(8, 16, 8, 128, 2048, torch.bfloat16)
+    lengths = torch.tensor([0, 1, 31, 33, 517, 1024, 2047, 2048], dtype=torch.int32, device=dev)
+    for chunk in (None, 2048, 7):
+        errs.append(check_attn_lse(torch, attn_ops, attn_ref, q, k, v, lengths, ATTN_BF16,
+                                   f"lse qwen3 shape bf16 chunk={chunk or 'default'}", chunk))
+    q, k, v = make(3, 20, 2, 64, 300, torch.float32)
+    lengths = torch.tensor([0, 150, 300], dtype=torch.int32, device=dev)
+    errs.append(check_attn_lse(torch, attn_ops, attn_ref, q, k, v, lengths, F32,
+                               "lse G=10 f32 chunk=32", 32))
     q, k, v = make(8, 16, 8, 128, 2048, torch.bfloat16)
     lengths = torch.tensor([1, 127, 128, 129, 1057, 1500, 2047, 2048], dtype=torch.int32, device=dev)
     for chunk in (None, 32):
@@ -1337,7 +1425,8 @@ def spawn_ranks(torch, target, rank_args):
                 rank, res = out.get(timeout=1.0)
             except queue.Empty:
                 dead = [r for r, p in enumerate(procs) if r not in results and p.exitcode is not None]
-                need(not dead, f"ranks {dead} exited without a result")
+                need(not dead, f"ranks {dead} exited without a result (exit codes "
+                               f"{[procs[r].exitcode for r in dead]})")
                 need(time.monotonic() < deadline,
                      f"ranks {sorted(set(range(world)) - set(results))} did not report "
                      f"within {RANK_TIMEOUT_S}s")
@@ -1787,6 +1876,332 @@ def read_floor_ms(torch, dev, n_bytes):
     return time_ms(torch, dev, lambda: buf.sum(), iters=50)
 
 
+# ---------------------------------------------------------------------------
+# the mesh (phase 13)
+# ---------------------------------------------------------------------------
+
+
+class _SpecMesh:
+    """The production mesh's axes, for reckoning shard sizes by hand."""
+    shape = {"data": 32, "model": 8}
+    axis_names = ("data", "model")
+
+
+def hand_argument_bytes(arch, shape_name):
+    """Local shard bytes of a cell's step arguments, reckoned from the rules'
+    specs and the stand-ins' shapes (no DTensor): each leaf's bytes over the
+    product of the mesh axes its spec names."""
+    import math
+
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs
+    from repro_torch.training.tree import leaves_with_paths
+
+    mesh, cfg, shape = _SpecMesh(), get_config(arch), SHAPES_BY_NAME[shape_name]
+    ispec = specs.input_specs(cfg, shape)
+
+    def local(leaf, spec):
+        n = leaf.numel() * leaf.element_size()
+        for entry in spec:
+            for a in (entry if isinstance(entry, tuple) else (entry,) if entry else ()):
+                n //= mesh.shape[a]
+        return n
+
+    total = sum(local(leaf, sh.param_spec(cfg, mesh, path, leaf))
+                for path, leaf in leaves_with_paths(ispec["params"]))
+    if shape.kind == "train":
+        specs_of = dict(sh.param_specs(cfg, mesh, ispec["params"]))
+        for part in ("mu", "nu"):
+            total += sum(local(leaf, specs_of[path])
+                         for path, leaf in leaves_with_paths(ispec["opt_state"][part]))
+        total += local(ispec["opt_state"]["step"], ())
+        bspec = sh.batch_spec(cfg, mesh, shape)
+        total += sum(local(leaf, bspec[k]) for k, leaf in ispec["batch"].items())
+    else:
+        total += sum(local(leaf, sh.decode_state_spec(cfg, mesh, shape.global_batch, path, leaf))
+                     for path, leaf in leaves_with_paths(ispec["state"]))
+        total += local(ispec["tokens"], sh.tokens_spec(mesh, shape.global_batch))
+    return total
+
+
+def dryrun_cells(torch, out_dir):
+    """13a: ``launch.dryrun`` on the production mesh (256 ranks, tp layout)
+    for DRYRUN_CELLS, each a process of its own (the fake group is
+    process-wide), all at once; memory, FLOPs, collectives and roofline
+    printed and checked."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for arch, shape in DRYRUN_CELLS:
+        path = out_dir / f"{arch}.{shape}.single.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--mesh", "single", "--out", str(path), "--quiet"]
+        procs[(arch, shape)] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True), path)
+    from repro_torch.configs import SHAPES_BY_NAME as SHAPES
+
+    recs = {}
+    try:
+        for cell, (p, path) in procs.items():
+            log_text, _ = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            need(p.returncode == 0 and path.exists(),
+                 f"phase 13a: the dry-run of {cell} exited {p.returncode}:\n{log_text[-3000:]}")
+            rec = json.loads(path.read_text())[0]
+            need("error" not in rec, f"phase 13a: {cell}: {rec.get('error')}\n"
+                                     f"{rec.get('traceback', '')[-3000:]}")
+            recs[cell] = rec
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    for (arch, shape), rec in recs.items():
+        m, c, rf, mf = rec["memory"], rec["scan_level_costs"], rec["roofline"], rec["model"]
+        hand = hand_argument_bytes(arch, shape)
+        tokens = (SHAPES[shape].global_batch * SHAPES[shape].seq_len
+                  if rec["kind"] == "train" else SHAPES[shape].global_batch)
+        k = 6.0 if rec["kind"] == "train" else 2.0
+        ndd = k * mf["active_params"] * tokens
+        log(f"  {arch} {shape} on {rec['mesh_shape']} ({rec['chips']} ranks, traced in "
+            f"{rec['compile_s']:.1f}s): per device arguments {m['argument_bytes'] / 1e9:.3f} GB "
+            f"(by hand {hand / 1e9:.3f} GB), peak {m['peak_bytes_est'] / 1e9:.3f} GB "
+            f"(fits 80 GB: {rf['fits_hbm']}); {c['flops_per_device']:.4e} FLOP traced, model "
+            f"{mf['model_flops_per_device']:.4e} (useful/traced {rf['useful_flops_ratio']:.3f})")
+        log(f"    collectives: counts {c['collective_counts']}, bytes by op "
+            f"{c['collective_bytes_by_op']}, by mesh dim {c['collective_bytes_by_axis']}")
+        log(f"    roofline (H100 data sheet): compute {rf['t_compute_s'] * 1e3:.3f} ms, memory "
+            f"{rf['t_memory_s'] * 1e3:.3f} ms (op-bytes bound "
+            f"{rf['t_memory_op_bytes_upper_s'] * 1e3:.1f} ms), collective {rf['t_collective_s'] * 1e3:.3f} ms "
+            f"{ {a: round(t * 1e3, 3) for a, t in rf['t_collective_by_axis_s'].items()} }; "
+            f"dominant {rf['dominant']}")
+        need(m["argument_bytes"] == hand,
+             f"phase 13a: {arch} {shape} argument bytes {m['argument_bytes']} != {hand} by hand")
+        need(mf["model_flops_global"] == ndd,
+             f"phase 13a: {arch} {shape} model FLOPs {mf['model_flops_global']} != {k:.0f}·N·D")
+        need(c["flops_per_device"] > 0 and c["collective_bytes"] > 0,
+             f"phase 13a: {arch} {shape} traced no FLOPs or no collectives")
+    return recs
+
+
+def _mesh_rank(rank, world, port, device, backend, shape):
+    import datetime
+    import faulthandler
+
+    faulthandler.enable()  # a crash in a collective prints its stack
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.act_sharding import use_mesh
+    from repro_torch.kernels.decode_attention import ops as attn_ops
+    from repro_torch.kernels.decode_attention import ref as attn_ref
+    from repro_torch.models import layers, lm
+    from repro_torch.training.data import SyntheticTokenStream, to_device
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import leaves_with_paths, tree_map
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        # NCCL takes one card a rank (it refuses two ranks on one device);
+        # gloo ranks share the first card, as phase 7's do
+        idx = rank % torch.cuda.device_count() if backend == "nccl" else (dev.index or 0)
+        dev = torch.device("cuda", idx)
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(dev.type, shape, mesh_dim_names=("data", "model"))
+        if rank == 0:
+            log(f"  rank 0: mesh {mesh}")
+        cfg = cut_depth(get_config(ARCH), MESH_LAYERS, dtype="float32", remat=False)
+        res = {"coord": mesh.get_coordinate()}
+        params = lm.init_params(cfg, seed=SEED, device=dev)
+        shape = ShapeConfig("mesh", MESH_TRAIN_S, MESH_TRAIN_B, "train")
+        batch = to_device(SyntheticTokenStream(cfg, shape).batch_at(0), dev)
+        step = make_train_step(cfg, OptConfig(**MESH_OPT))
+
+        # one step on the (2, 2) mesh ...
+        placed = sh.param_shardings(cfg, mesh, params)
+        opt = sh.opt_state_shardings(mesh, init_opt_state(params), placed)
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            placed_batch = sh.to_named(mesh, sh.batch_spec(cfg, mesh, shape), batch)
+            loss, placed, opt, _ = step(placed, opt, placed_batch)
+            loss = float(loss.full_tensor())
+        sync(torch, dev)
+        res["step_s"] = time.perf_counter() - t0
+        if rank == 0:
+            log(f"  rank 0: sharded step done in {res['step_s']:.2f}s")
+        whole = {k: v.full_tensor() for k, v in leaves_with_paths(placed)}
+        del placed, opt
+        # ... and unsharded, from the same parameters (each rank computes it)
+        ref = tree_map(lambda t: t.clone(), params)
+        ref_loss, ref, _, _ = step(ref, init_opt_state(ref), batch)
+        res["loss"], res["ref_loss"] = loss, float(ref_loss)
+        n = off = 0
+        worst = 0.0
+        for k, want in leaves_with_paths(ref):
+            diff = (whole[k] - want).abs()
+            worst = max(worst, float(diff.max()))
+            off += int((diff > MESH_PARAM_ATOL).sum())
+            n += diff.numel()
+        res["param_max_diff"], res["param_frac_off"] = worst, off / n
+        del whole, ref
+
+        # sharded prefill + greedy decode over the sequence-sharded cache
+        rng = np.random.default_rng(SEED + 13)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (MESH_DECODE_B, MESH_PROMPT)),
+                                 dtype=torch.int32, device=dev)
+        seen = []
+        plain_call = layers.decode_attention
+
+        def recording(q, k, v, lengths, **kw):
+            if kw.get("return_lse"):
+                seen[:] = [q, k, v, lengths]
+            return plain_call(q, k, v, lengths, **kw)
+
+        placed = sh.param_shardings(cfg, mesh, params)
+        attn_ops.decode_attention.launches = 0
+        layers.decode_attention = recording
+        try:
+            t0 = time.perf_counter()
+            with use_mesh(mesh):
+                toks = lm.greedy(placed, cfg, prompt, max_len=MESH_MAX_LEN, steps=MESH_STEPS)
+                _, state = lm.prefill(placed, cfg, prompt, max_len=MESH_MAX_LEN)
+            sync(torch, dev)
+            res["decode_s"] = time.perf_counter() - t0
+        finally:
+            layers.decode_attention = plain_call
+        res["launches"] = attn_ops.decode_attention.launches
+        k_cache = state["segments"][0]["mixer"]["k"]
+        res["cache"] = (f"{tuple(k_cache.shape)} placements {list(map(str, k_cache.placements))}, "
+                        f"local {tuple(k_cache.to_local().shape)}")
+        # the kernel's (output, lse) on this rank's last block, held to plain
+        q, k, v, lens = seen
+        out, lse = attn_ops.decode_attention(q, k, v, lens, return_lse=True)
+        want, want_lse = attn_ref.decode_attention_ref(q, k, v, lens, return_lse=True)
+        fin = torch.isfinite(want_lse)
+        res["lse_lengths"] = lens.tolist()
+        res["lse_err"] = float((lse[fin] - want_lse[fin]).abs().max()) if fin.any() else 0.0
+        res["lse_ok"] = (bool(torch.allclose(out, want, **F32))
+                         and bool(torch.allclose(lse[fin], want_lse[fin], **ATTN_LSE))
+                         and bool(torch.equal(torch.isneginf(lse), ~fin)))
+        res["out_err"] = float((out - want).abs().max())
+        res["tokens"] = toks.cpu().numpy()
+        res["ref_tokens"] = lm.greedy(params, cfg, prompt, max_len=MESH_MAX_LEN,
+                                      steps=MESH_STEPS).cpu().numpy()
+        sync(torch, dev)
+        dist.barrier()  # no rank tears the group down while a peer still uses it
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank(rank, world, port, device, backend, shape, out):
+    """One rank of 13b, in a spawned process: reports its result (or its
+    traceback) on ``out``."""
+    try:
+        out.put((rank, _mesh_rank(rank, world, port, device, backend, shape)))
+    except BaseException:
+        out.put((rank, traceback.format_exc()))
+        raise
+
+
+def mesh_on_card(torch, dev, backend=MESH_BACKEND, shape=MESH_SHAPE):
+    """13b: a (data, model) mesh of ``shape`` ranks (spawned processes) on
+    the one card: the train step on the mesh against the unsharded one, and
+    greedy decode over the cache laid out by the decode-state rules (the
+    kernel on each rank's block, with its log-sum-exp) against the
+    unsharded tokens; every rank must launch decode_attention and its
+    log-sum-exp output must agree with the plain version."""
+    import math
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    log(f"  mesh {shape} of {backend} ranks on the card")
+    results = spawn_ranks(torch, mesh_rank, [(str(dev), backend, shape)] * math.prod(shape))
+    for r, res in sorted(results.items()):
+        log(f"  rank {r} at {res['coord']}: loss {res['loss']:.6f} "
+            f"(unsharded {res['ref_loss']:.6f}), "
+            f"params max |diff| {res['param_max_diff']:.3e}, {res['param_frac_off'] * 100:.4f}% "
+            f"over {MESH_PARAM_ATOL}; step {res['step_s']:.2f}s; decode_attention launches "
+            f"{res['launches']}, lse on lengths {res['lse_lengths']}: max_abs_err "
+            f"{res['lse_err']:.3e} (out {res['out_err']:.3e}) {'ok' if res['lse_ok'] else 'FAIL'}; "
+            f"tokens {'equal' if np.array_equal(res['tokens'], res['ref_tokens']) else 'DIFFER'}; "
+            f"prefill+{MESH_STEPS} steps {res['decode_s']:.2f}s")
+    log(f"  cache {results[0]['cache']}; {time.perf_counter() - t0:.1f}s")
+    lr = MESH_OPT["lr"]
+    for r, res in results.items():
+        need(abs(res["loss"] - res["ref_loss"]) <= MESH_LOSS_RTOL * abs(res["ref_loss"]),
+             f"phase 13b: rank {r}'s sharded loss differs from the unsharded one")
+        need(res["param_max_diff"] <= 2 * lr and res["param_frac_off"] <= MESH_PARAM_FRAC,
+             f"phase 13b: rank {r}'s updated parameters differ from the unsharded step")
+        need(np.array_equal(res["tokens"], res["ref_tokens"]),
+             f"phase 13b: rank {r}'s greedy tokens differ from the unsharded decode")
+        need(res["launches"] > 0, f"phase 13b: rank {r} never launched decode_attention")
+        need(res["lse_ok"], f"phase 13b: rank {r}'s log-sum-exp output disagrees with plain")
+    return {r: res["launches"] for r, res in results.items()}, max(
+        max(res["lse_err"], res["out_err"]) for res in results.values())
+
+
+def launcher_through_host_mesh(torch, dev, tmp):
+    """13c: ``launch.train`` on the card through its host mesh ((1, 1) on one
+    card) against the one-device loop it ran before it had a mesh (the same
+    step, parameters and stream, no DTensor): the losses must be equal."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.training.data import SyntheticTokenStream, to_device
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    steps = int(MESH_LAUNCHER_ARGS[MESH_LAUNCHER_ARGS.index("--steps") + 1])
+    got = train.main([*MESH_LAUNCHER_ARGS, "--device", "cuda", "--ckpt-dir", str(tmp)])["losses"]
+    cfg = get_config("qwen3-1.7b").reduced()
+    base = SHAPES_BY_NAME["train_4k"]
+    shape = ShapeConfig(base.name, 128, 8, base.kind)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, OptConfig(total_steps=steps))
+    ds = SyntheticTokenStream(cfg, shape)
+    want = {}
+    for i in range(steps):
+        loss, params, opt, _ = step(params, opt, to_device(ds.batch_at(i), dev))
+        want[i] = float(loss)
+    log(f"  launch.train {' '.join(MESH_LAUNCHER_ARGS)} through the host mesh: losses {got}; "
+        f"one-device loop {want}: {'equal' if got == want else 'DIFFER'}")
+    need(got == want, "phase 13c: the launcher's losses through the host mesh differ")
+
+
+def mesh_phase(torch, dev, out_dir):
+    """Phase 13; returns decode_attention's launches by rank and the largest
+    kernel-vs-plain error of its log-sum-exp checks."""
+    t0 = time.perf_counter()
+    log("  13a: the dry-run on the production mesh (data=32, model=8)")
+    dryrun_cells(torch, out_dir / "dryrun")
+    log(f"  13a took {time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    log(f"  13b: a {MESH_SHAPE} {MESH_BACKEND} mesh on the card")
+    launches, err = mesh_on_card(torch, dev)
+    log(f"  13b took {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    log("  13c: the train launcher through the host mesh")
+    launcher_through_host_mesh(torch, dev, out_dir / "launcher")
+    log(f"  13c took {time.perf_counter() - t1:.1f}s")
+    return launches, err
+
+
 def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
     """Phase 6: each kernel, its plain version and (decode, merge) one
     PyTorch call, timed on the inputs the main path and the sharded search
@@ -1831,6 +2246,9 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
     attn_bound, attn_by = bound(attn_bytes, attn_ops_n, BF16_FLOPS)
     attn_ms = time_ms(torch, dev, lambda: attn_ops.decode_attention(aq, ak, av, alen), iters=50)
     attn_plain = time_ms(torch, dev, lambda: attn_ref.decode_attention_ref(aq, ak, av, alen))
+    # the variant that also writes each head's log-sum-exp (the sharded decode's)
+    attn_lse_ms = time_ms(torch, dev, lambda: attn_ops.decode_attention(aq, ak, av, alen,
+                                                                         return_lse=True), iters=50)
     mask = (torch.arange(ak.shape[1], device=dev)[None, :] < alen[:, None])[:, None, None, :]
     # SDPA's (B, heads, S, dh) layout: copies made once, outside the timing
     kt, vt = ak.transpose(1, 2).contiguous(), av.transpose(1, 2).contiguous()
@@ -1844,7 +2262,8 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
     attn_lib = time_ms(torch, dev, sdpa, iters=50)
     log(f"  decode_attention B={B} H={H} KV={KV} dh={dh} S={ak.shape[1]} "
         f"sum(lengths)={int(lens.sum())}: {attn_bytes} bytes, {attn_ops_n} FLOP; kernel "
-        f"{attn_ms:.4f} ms, plain {attn_plain:.4f} ms, SDPA {attn_lib:.4f} ms "
+        f"{attn_ms:.4f} ms (with the log-sum-exp output {attn_lse_ms:.4f} ms), plain "
+        f"{attn_plain:.4f} ms, SDPA {attn_lib:.4f} ms "
         f"(max |SDPA - plain| {lib_err:.3e}), bound {attn_bound:.4f} ms ({attn_by}); one "
         f"torch.sum over as many bytes {read_floor_ms(torch, dev, attn_bytes):.4f} ms")
     # the decode step those launches sit in: all layers at the same state
@@ -2018,12 +2437,21 @@ def main() -> int:
     train_launches, _ = train_phase(torch, dev, ROOT / "build" / "phase12")
     log(f"  phase 12 took {time.perf_counter() - t0:.1f}s")
 
+    # 13. the mesh ------------------------------------------------------------
+    log(f"[13] the mesh: the dry-run on the production mesh; a {MESH_SHAPE} {MESH_BACKEND} mesh "
+        "on the card (train step, decode over the laid-out cache); the launcher through the "
+        "host mesh")
+    t0 = time.perf_counter()
+    mesh_launches, e = mesh_phase(torch, dev, ROOT / "build" / "phase13")
+    attn_err = max(attn_err, e)
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f}s")
+
     # launches: phase 4's main path, phase 9's wall-clock run, phase 10's
     # served path, phase 11's zoo and phase 12's training (none), each read
     # with the counts set to 0 just before it; topk_merge's from phase 7
     log(f"  launches: phase 4 {launches}, phase 9 {wc_launches}, phase 10 {moe_launches}, "
-        f"phase 11 {zoo_launches}, phase 12 {train_launches}, phase 7 topk_merge "
-        f"{merge_launches}")
+        f"phase 11 {zoo_launches}, phase 12 {train_launches}, phase 13 decode_attention by rank "
+        f"{mesh_launches}, phase 7 topk_merge {merge_launches}")
     kernels = [
         {"name": "ivf_scan", "route": "cuda", "source": "src/repro_torch/csrc/ivf_scan.cu",
          "replaces": "src/repro/kernels/ivf_scan/ivf_scan.py:111",
@@ -2035,7 +2463,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_attention/decode_attention.py:80",
          "launches": (launches["decode_attention"] + wc_launches["decode_attention"]
                       + moe_launches["decode_attention"] + zoo_launches["decode_attention"]
-                      + train_launches["decode_attention"]),
+                      + train_launches["decode_attention"] + sum(mesh_launches.values())),
          "max_abs_err": attn_err,
          **t["decode_attention"]},
         {"name": "topk_merge", "route": "cuda", "source": "src/repro_torch/csrc/topk_merge.cu",
@@ -2052,9 +2480,37 @@ def main() -> int:
     return 0
 
 
+def mesh_cards(shape) -> int:
+    """``--mesh D,M``: phase 13b alone on a (D, M) NCCL mesh, one rank a
+    card (D x M cards), the mesh the one-card run cannot have."""
+    import math
+
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke.py must run from the repository: src/repro_torch is missing",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < math.prod(shape):
+        print(f"--mesh {shape} needs {math.prod(shape)} CUDA cards", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"  torch {torch.__version__}; {torch.cuda.device_count()} x "
+        f"{torch.cuda.get_device_name(0)}\n{smi.stdout.strip()}")
+    launches, err = mesh_on_card(torch, torch.device("cuda"), "nccl", shape)
+    log(f"  decode_attention launches by rank {launches}; largest log-sum-exp error {err:.3e}")
+    return 0
+
+
 if __name__ == "__main__":
     try:
-        rc = main()
+        if sys.argv[1:2] == ["--mesh"]:
+            rc = mesh_cards(tuple(int(n) for n in sys.argv[2].split(",")))
+        else:
+            rc = main()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         rc = 1

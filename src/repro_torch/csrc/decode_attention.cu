@@ -12,7 +12,11 @@
 // kv head kvh, with an online softmax (m, l, acc) accumulated in f32 on
 // f32 or bf16 K/V.  The output is in q's dtype.  Lengths are >= 1 on the
 // serving path (an empty slot decodes with cache_len + 1 = 1); a length of
-// 0 gives zeros, as acc / max(l, 1e-30) does in the TPU kernel.
+// 0 gives zeros, as acc / max(l, 1e-30) does in the TPU kernel.  Given an
+// lse pointer it also writes each head's natural log-sum-exp of the scores,
+// ln 2 * (m + log2 l) in the base-2 state below (-inf for a length of 0):
+// a rank that holds a block of a sequence-sharded cache returns it beside
+// its output, and the partial outputs of the ranks are combined with it.
 //
 // What bounds it on the H100: it must read sum_b lengths[b] * KV * dh
 // elements of K and of V once; the FLOPs are 4 * G per element pair, so at
@@ -71,11 +75,17 @@ __host__ __device__ inline int lanes_per_row(int vpr) {
   return p;
 }
 
+// natural log-sum-exp of a base-2 online-softmax state (m, l)
+__device__ inline float lse_of(float m, float l) {
+  return l > 0.f ? 0.6931471805599453f * (m + log2f(l)) : -INFINITY;
+}
+
 template <typename T, int GB, int VPL>
 __global__ void __launch_bounds__(NT)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ lengths,
-                        T* __restrict__ out, float* __restrict__ part,
+                        T* __restrict__ out, float* __restrict__ lse,
+                        float* __restrict__ part,
                         unsigned* __restrict__ counters, int S, int KV, int G, int NHG,
                         int dh, int chunk, float qscale) {
   constexpr int N = 16 / sizeof(T);  // elements per 16-byte vector
@@ -245,6 +255,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (single) {
       out[qoff + (size_t)g * dh + e] = from_f<T>(A / fmaxf(L, 1e-30f));
+      if (lse != nullptr && e == 0) lse[qoff / dh + g] = lse_of(M, L);
     } else {
       mine[2 * GB + g * dh + e] = A;
       if (e == 0) {
@@ -271,12 +282,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     out[qoff + (size_t)g * dh + e] = from_f<T>(A / fmaxf(L, 1e-30f));
+    if (lse != nullptr && e == 0) lse[qoff / dh + g] = lse_of(M, L);
   }
 }
 
 template <typename T, int GB, int VPL>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
-           void* part, void* counters, int B, int S, int KV, int G, int dh, int chunk,
+           void* lse, void* part, void* counters, int B, int S, int KV, int G, int dh, int chunk,
            int n_split, cudaStream_t stream) {
   const int NHG = (G + GB - 1) / GB;
   const int rpi = 32 / lanes_per_row(dh / (16 / (int)sizeof(T)));
@@ -287,29 +299,30 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   const float qscale = 1.4426950408889634f / sqrtf(static_cast<float>(dh));  // log2(e)/sqrt(dh)
   kernel<<<dim3(B * KV * NHG, n_split), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<T*>(out), static_cast<float*>(part),
+      static_cast<const int*>(lengths), static_cast<T*>(out), static_cast<float*>(lse),
+      static_cast<float*>(part),
       static_cast<unsigned*>(counters), S, KV, G, NHG, dh, chunk, qscale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int GB>
 int launch_vpl(const void* q, const void* k, const void* v, const void* lengths, void* out,
-               void* part, void* counters, int B, int S, int KV, int G, int dh, int chunk,
+               void* lse, void* part, void* counters, int B, int S, int KV, int G, int dh, int chunk,
                int n_split, cudaStream_t s) {
   if (dh / (16 / (int)sizeof(T)) > 32)
-    return launch<T, GB, 2>(q, k, v, lengths, out, part, counters, B, S, KV, G, dh, chunk, n_split, s);
-  return launch<T, GB, 1>(q, k, v, lengths, out, part, counters, B, S, KV, G, dh, chunk, n_split, s);
+    return launch<T, GB, 2>(q, k, v, lengths, out, lse, part, counters, B, S, KV, G, dh, chunk, n_split, s);
+  return launch<T, GB, 1>(q, k, v, lengths, out, lse, part, counters, B, S, KV, G, dh, chunk, n_split, s);
 }
 
 template <typename T>
 int launch_gb(const void* q, const void* k, const void* v, const void* lengths, void* out,
-              void* part, void* counters, int B, int S, int KV, int G, int GB, int dh,
+              void* lse, void* part, void* counters, int B, int S, int KV, int G, int GB, int dh,
               int chunk, int n_split, cudaStream_t s) {
   switch (GB) {
-    case 1: return launch_vpl<T, 1>(q, k, v, lengths, out, part, counters, B, S, KV, G, dh, chunk, n_split, s);
-    case 2: return launch_vpl<T, 2>(q, k, v, lengths, out, part, counters, B, S, KV, G, dh, chunk, n_split, s);
-    case 4: return launch_vpl<T, 4>(q, k, v, lengths, out, part, counters, B, S, KV, G, dh, chunk, n_split, s);
-    case 8: return launch_vpl<T, 8>(q, k, v, lengths, out, part, counters, B, S, KV, G, dh, chunk, n_split, s);
+    case 1: return launch_vpl<T, 1>(q, k, v, lengths, out, lse, part, counters, B, S, KV, G, dh, chunk, n_split, s);
+    case 2: return launch_vpl<T, 2>(q, k, v, lengths, out, lse, part, counters, B, S, KV, G, dh, chunk, n_split, s);
+    case 4: return launch_vpl<T, 4>(q, k, v, lengths, out, lse, part, counters, B, S, KV, G, dh, chunk, n_split, s);
+    case 8: return launch_vpl<T, 8>(q, k, v, lengths, out, lse, part, counters, B, S, KV, G, dh, chunk, n_split, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -317,7 +330,8 @@ int launch_gb(const void* q, const void* k, const void* v, const void* lengths, 
 }  // namespace
 
 // q (B, KV*G, dh), k/v (B, S, KV, dh), all f32 or all bf16; lengths (B,) i32
-// -> out (B, KV*G, dh) in q's dtype.  GB (1, 2, 4 or 8) query heads a block;
+// -> out (B, KV*G, dh) in q's dtype and, where lse is not null, lse
+// (B, KV*G) f32.  GB (1, 2, 4 or 8) query heads a block;
 // the cache is cut into n_split chunks of `chunk` rows (n_split * chunk >= S).
 // part: f32 scratch of B*KV*ceil(G/GB) * n_split * GB*(dh+2) floats (unused
 // when n_split == 1); counters: B*KV*ceil(G/GB) u32, zero before the launch
@@ -325,7 +339,7 @@ int launch_gb(const void* q, const void* k, const void* v, const void* lengths, 
 // of 16, contiguous 16-byte aligned tensors (the Python wrapper checks).
 // Returns cudaGetLastError() after the launch.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* lengths, void* out, void* part,
+                                       const void* lengths, void* out, void* lse, void* part,
                                        void* counters, int B, int S, int KV, int G, int GB,
                                        int dh, int chunk, int n_split, int bf16, void* stream) {
   if (B <= 0 || KV <= 0 || G <= 0) return 0;
@@ -333,6 +347,6 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_gb<__nv_bfloat16>(q, k, v, lengths, out, part, counters, B, S, KV, G, GB, dh, chunk, n_split, s);
-  return launch_gb<float>(q, k, v, lengths, out, part, counters, B, S, KV, G, GB, dh, chunk, n_split, s);
+    return launch_gb<__nv_bfloat16>(q, k, v, lengths, out, lse, part, counters, B, S, KV, G, GB, dh, chunk, n_split, s);
+  return launch_gb<float>(q, k, v, lengths, out, lse, part, counters, B, S, KV, G, GB, dh, chunk, n_split, s);
 }

@@ -7,8 +7,8 @@ package's ``distributed/elastic.py``).
   state to restore into is built on the meta device (the JAX
   ``jax.eval_shape``), so a resume draws no parameters it then discards.
 * **Re-placement** — ``build_device`` is called on every (re)start, and the
-  checkpoint is restored onto the device it returns.  Sharding over a mesh
-  of cards is ROADMAP.md queue A item 7.
+  checkpoint is restored onto the device it returns; the launcher then
+  places the whole tensors on its mesh (``launch.train``).
 * **Straggler detection** — the launcher reports each step time; a streak
   of ``patience`` steps slower than ``straggler_factor`` x the median says
   that a re-placement should be triggered.

@@ -22,9 +22,12 @@ Conventions (as in the JAX package's ``models/layers.py``)
   absorbed decode and cross-attention are plain f32 einsums, as in the JAX
   package.
 * Decode writes the new K/V rows (and int8 scales) into the state in place.
-* Sharding annotations (``constrain``) have no counterpart on one card and
-  are dropped; MoE routes over one token group (the JAX ``dp_total()`` is 1
-  on one card).
+* Sharding annotations (``constrain``) sit at the JAX package's points;
+  outside a ``use_mesh`` scope they return their input.  Under a mesh the
+  parameters and activations are DTensors: MoE routes per data-parallel
+  token group on each rank's own groups, and decode writes a new cache row
+  only on the rank that holds its slot and attends over each rank's block
+  of a sequence-sharded cache (``_sharded_decode``).
 * The ring window's prefill puts position ``p`` at slot ``p % window``, the
   slot decode writes it to, so decode equals the full forward pass at every
   prompt length (the JAX package left-pads the last ``window`` keys from
@@ -37,8 +40,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
 
 from repro_torch.configs.base import ModelConfig, Segment
+from repro_torch.distributed.act_sharding import constrain, dp_total, layout
 from repro_torch.kernels.decode_attention import decode_attention
 
 Params = dict
@@ -160,6 +165,65 @@ def sinusoidal_embedding(positions: torch.Tensor, d: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _per_shard(fn):
+    """``fn(q, k, v, ...)`` over (B, S, heads, dh) tensors, run on each rank's
+    block when q is a DTensor: attention is independent per sequence and
+    per kv head, so the blocks keep the batch shards and the head shards
+    that q and k share, and gather everything else (sequence, head_dim,
+    partial sums).  A plain q calls ``fn`` as it is."""
+    def wrapped(q, k, v, *args, **kwargs):
+        if not isinstance(q, DTensor):
+            return fn(q, k, v, *args, **kwargs)
+        mesh = q.device_mesh
+        kp = k.placements if isinstance(k, DTensor) else [Replicate()] * mesh.ndim
+        pl = [p if (p.is_shard() and (p.dim == 0 or (p.dim == 2 and kp[i] == p))) else Replicate()
+              for i, p in enumerate(q.placements)]
+        out = fn(*(_ContiguousGrad.apply(_local(t, mesh, pl)) for t in (q, k, v)), *args,
+                 **kwargs)
+        return DTensor.from_local(out, mesh, pl)
+
+    return wrapped
+
+
+def split_heads(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)``, whose last two dims split x's last dim into
+    (heads, head_dim).  A DTensor whose last dim is sharded into more
+    blocks than the heads divide (recurrentgemma's 10 heads over a model
+    axis of 8) is gathered over that dim first: DTensor cannot split an
+    uneven shard."""
+    if isinstance(x, DTensor):
+        n = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                      if p.is_shard() and p.dim == x.dim() - 1)
+        if shape[-2] % n:
+            x = x.redistribute(x.device_mesh, _without(x.placements, x.dim() - 1))
+    return x.reshape(*shape)
+
+
+def merge_heads(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)``, merging x's (heads, head_dim) into one dim.  On
+    a DTensor the result is also a constraint to its own layout, so its
+    gradient comes back laid out as the heads were: the backward of the
+    merge then splits an even shard (the product after it would otherwise
+    hand back a gradient sharded where the heads are not)."""
+    y = x.reshape(*shape)
+    return y.redistribute(y.device_mesh, y.placements) if isinstance(y, DTensor) else y
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: a DTensor's
+    backward views its local gradient, which a permuted einsum gradient
+    does not allow."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+@_per_shard
 def _sdpa_block(q, k, v, mask, scale):
     """q:(B,Sq,H,dh) k,v:(B,Sk,KV,dh) mask:(B?,Sq,Sk) or None -> (B,Sq,H,dh)."""
     B, Sq, H, dh = q.shape
@@ -174,6 +238,7 @@ def _sdpa_block(q, k, v, mask, scale):
     return out.reshape(B, Sq, H, dh).to(q.dtype)
 
 
+@_per_shard
 def blocked_attention(q, k, v, *, causal: bool, window: int = 0, q_chunk: int = 1024,
                       q_offset: int = 0) -> torch.Tensor:
     """Causal attention in query chunks, each against only the keys it may
@@ -229,7 +294,9 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q, k, v = q.reshape(B, S, H, dh), k.reshape(B, S, KV, dh), v.reshape(B, S, KV, dh)
+    q = constrain(split_heads(q, B, S, H, dh), "dp", None, "tp", None)
+    k = constrain(split_heads(k, B, S, KV, dh), "dp", None, "tp", None)
+    v = constrain(split_heads(v, B, S, KV, dh), "dp", None, "tp", None)
     if cfg.qk_norm:
         q = rms_norm_headwise(q, p["q_norm"])
         k = rms_norm_headwise(k, p["k_norm"])
@@ -277,8 +344,11 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor)
     Updates ``cache`` IN PLACE (the JAX version returns a new array and
     relies on buffer donation for the same effect) and returns it.  Like
     ``lax.dynamic_update_slice``, a position past the end is clamped to the
-    last row.
+    last row.  On a DTensor cache each rank writes its own block, and only
+    where it holds the row.
     """
+    if isinstance(cache, DTensor):
+        return _scatter_time_sharded(cache, new, lengths)
     B, S = cache.shape[:2]
     pos = lengths.long().clamp(0, S - 1)
     cache[torch.arange(B, device=cache.device), pos] = new[:, 0].to(cache.dtype)
@@ -287,7 +357,13 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor)
 
 def _prefill_cache(t: torch.Tensor, rows: int, window: int) -> torch.Tensor:
     """A (B, rows, ...) cache holding prefill's t (B, S, ...): position p at
-    row p, or for a ring window at row p % window (the last window ones)."""
+    row p, or for a ring window at row p % window (the last window ones).
+    A DTensor t gives a DTensor cache laid out as t, its sequence whole
+    (``distributed.sharding.decode_state_shardings`` then shards it)."""
+    if isinstance(t, DTensor):
+        pl = _without(t.placements, 1)
+        local = _prefill_cache(t.redistribute(t.device_mesh, pl).to_local(), rows, window)
+        return DTensor.from_local(local, t.device_mesh, pl)
     B, S = t.shape[:2]
     cache = torch.zeros((B, rows) + t.shape[2:], dtype=t.dtype, device=t.device)
     if window:
@@ -296,6 +372,100 @@ def _prefill_cache(t: torch.Tensor, rows: int, window: int) -> torch.Tensor:
     else:
         cache[:, :S] = t
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Decode over a sharded cache (DTensors under a mesh)
+# ---------------------------------------------------------------------------
+
+
+def _without(placements, *dims) -> list:
+    """``placements`` with every shard of the tensor dims ``dims``, and every
+    partial sum, made whole (``Replicate``)."""
+    return [Replicate() if (p.is_partial() or (p.is_shard() and p.dim in dims)) else p
+            for p in placements]
+
+
+def _only(placements, *dims) -> list:
+    """Only the shards of tensor dims ``dims`` kept; everything else whole."""
+    return [p if (p.is_shard() and p.dim in dims) else Replicate() for p in placements]
+
+
+def _local(x, mesh, placements) -> torch.Tensor:
+    """This rank's block of ``x`` (a DTensor, or a plain tensor whole on
+    every rank) laid out by ``placements``."""
+    if isinstance(x, DTensor):
+        if tuple(x.placements) != tuple(placements):
+            x = x.redistribute(mesh, placements)
+        return x.to_local()
+    return distribute_tensor(x, mesh, placements, src_data_rank=None).to_local()
+
+
+def _block(cache: DTensor) -> tuple[torch.Tensor, int]:
+    """(this rank's block of a (B, S, ...) cache, the global row of its
+    first row)."""
+    mesh, local = cache.device_mesh, cache.to_local()
+    coord = mesh.get_coordinate()
+    block = 0  # the block's index: mesh dims sharding the rows, major first
+    for i, p in enumerate(cache.placements):
+        if p.is_shard() and p.dim == 1:
+            block = block * mesh.size(i) + coord[i]
+    return local, block * local.shape[1]
+
+
+def _scatter_time_sharded(cache: DTensor, new, lengths) -> DTensor:
+    """``_scatter_time`` on each rank's block: the rank whose rows hold
+    position ``lengths[b]`` (clamped to the last row) writes it; the others
+    keep theirs (a select, so no shape depends on the data)."""
+    mesh, pl = cache.device_mesh, cache.placements
+    loc, off = _block(cache)
+    rows = loc.shape[1]
+    new_l = _local(new, mesh, _without(pl, 1))[:, 0].to(loc.dtype)
+    pos = _local(lengths, mesh, _only(pl, 0)).long().clamp(0, cache.shape[1] - 1) - off
+    own = (pos >= 0) & (pos < rows)
+    idx = pos.clamp(0, rows - 1)
+    b = torch.arange(loc.shape[0], device=loc.device)
+    keep = loc[b, idx]
+    loc[b, idx] = torch.where(own.view((-1,) + (1,) * (keep.dim() - 1)), new_l, keep)
+    return cache
+
+
+def _sharded_decode(q, k_cache: DTensor, v_cache: DTensor, lengths) -> DTensor:
+    """Decode attention of q (B, 1, H, dh) over a DTensor cache (B, S, KV, dh).
+
+    Each rank runs the kernel on its block: its batch rows, its kv heads
+    (when heads are on ``model``) and its cache rows, with local lengths
+    ``clamp(len - offset, 0, rows)``, and returns its output and the
+    log-sum-exp of its scores.  Where the sequence is sharded, the partial
+    outputs are combined over those mesh dims: out = sum_i w_i out_i /
+    sum_i w_i with w_i = exp(lse_i - max lse); a block holding none of a
+    sequence has lse -inf and weighs 0.
+    """
+    import torch.distributed._functional_collectives as funcol
+
+    mesh, pl = k_cache.device_mesh, k_cache.placements
+    dh = q.shape[-1]
+    kl, off = _block(k_cache)
+    vl = v_cache.to_local()
+    q_pl = _without(pl, 1)
+    ql = _local(q, mesh, q_pl)
+    lens = (_local(lengths, mesh, _only(pl, 0)) - off).clamp(0, kl.shape[1]).to(torch.int32)
+    Bl, _, Hl, _ = ql.shape
+    out, lse = decode_attention(ql.reshape(Bl, Hl, dh).contiguous(), kl, vl, lens,
+                                return_lse=True)
+    seq_dims = [i for i, p in enumerate(pl) if p.is_shard() and p.dim == 1 and mesh.size(i) > 1]
+    if seq_dims:
+        m = lse
+        for i in seq_dims:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        w = torch.exp(lse - m)
+        num = out.float() * w[..., None]
+        for i in seq_dims:
+            num = funcol.all_reduce(num, "sum", (mesh, i))
+            w = funcol.all_reduce(w, "sum", (mesh, i))
+        out = (num / w[..., None]).to(q.dtype)
+    return DTensor.from_local(out.reshape(Bl, 1, Hl, dh), mesh, q_pl)
 
 
 def apply_attention(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *,
@@ -311,9 +481,9 @@ def apply_attention(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, 
 
     if mode != "decode":
         out = blocked_attention(q, k, v, causal=causal, window=window, q_chunk=cfg.attn_q_chunk)
-        out = out.reshape(B, S, H * dh) @ p["wo"]
+        out = merge_heads(constrain(out, "dp", None, "tp", None), B, S, H * dh) @ p["wo"]
         if mode in STATELESS:
-            return out, None
+            return constrain(out, "dp", None, None), None
         rows = min(window, max_len) if window else max_len  # as attention_init_state
         st = {"k": _prefill_cache(k, rows, window), "v": _prefill_cache(v, rows, window)}
         if cfg.kv_cache_dtype == "int8":
@@ -338,6 +508,11 @@ def apply_attention(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, 
     else:
         st = {"k": _scatter_time(state["k"], k, slot), "v": _scatter_time(state["v"], v, slot)}
         k_full, v_full = st["k"], st["v"]
+    if isinstance(k_full, DTensor):
+        # the (B, 1, H*dh) product folded to 2-D by hand: on this DTensor
+        # matmul would broadcast wo over the batch instead (a bmm)
+        out = merge_heads(_sharded_decode(q, k_full, v_full, eff_len), B * S, H * dh)
+        return (out @ p["wo"]).reshape(B, S, -1), st
     out = decode_attention(q.reshape(B, H, dh), k_full, v_full, eff_len.to(torch.int32))
     return out.reshape(B, S, H * dh) @ p["wo"], st
 
@@ -357,21 +532,31 @@ def apply_cross_attention(cfg: ModelConfig, p: Params, x, enc_kv):
     """enc_kv: dict with 'k','v' (B, Senc, KV, dh) precomputed from encoder."""
     B, S, _ = x.shape
     H, dh = cfg.n_heads, cfg.d_head
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
+    q = split_heads(x @ p["wq"], B, S, H, dh)
     out = _sdpa_block(q, enc_kv["k"], enc_kv["v"], None, 1.0 / math.sqrt(dh))
-    return out.reshape(B, S, H * dh) @ p["wo"]
+    return merge_heads(out, B, S, H * dh) @ p["wo"]
 
 
 def encode_cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor) -> Params:
     B, Se, _ = enc_out.shape
     KV, dh = cfg.n_kv_heads, cfg.d_head
-    return {"k": (enc_out @ p["wk"]).reshape(B, Se, KV, dh),
-            "v": (enc_out @ p["wv"]).reshape(B, Se, KV, dh)}
+    return {"k": split_heads(enc_out @ p["wk"], B, Se, KV, dh),
+            "v": split_heads(enc_out @ p["wv"], B, Se, KV, dh)}
 
 
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2 multi-head latent attention)
 # ---------------------------------------------------------------------------
+
+
+@_per_shard
+def _padded_attention(q, k, v, *, q_chunk: int):
+    """Causal attention with v's head dim narrower than q's and k's: v is
+    padded so the blocked attention sees equal d, and the output sliced
+    after (on each rank's block under a mesh)."""
+    vd = v.shape[-1]
+    vpad = F.pad(v, (0, q.shape[-1] - vd))
+    return blocked_attention(q, k, vpad, causal=True, q_chunk=q_chunk)[..., :vd]
 
 
 def init_mla(cfg: ModelConfig, seg: Segment, mk: Init) -> Params:
@@ -429,14 +614,12 @@ def apply_mla(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *, mod
 
     if mode != "decode":
         # expand per-head K/V from the latent (standard prefill path)
-        k_nope = (ckv @ p["wk_b"]).reshape(B, S, H, np_)
-        v = (ckv @ p["wv_b"]).reshape(B, S, H, vd)
+        k_nope = constrain((ckv @ p["wk_b"]).reshape(B, S, H, np_), "dp", None, "tp", None)
+        v = constrain((ckv @ p["wv_b"]).reshape(B, S, H, vd), "dp", None, "tp", None)
         k = torch.cat([k_nope, kpe[:, :, None, :].expand(B, S, H, rp)], -1)
-        q = torch.cat([q_nope, q_pe], -1)
-        # pad v's head dim so the blocked attention sees equal d; slice after
-        vpad = F.pad(v, (0, np_ + rp - vd))
-        out = blocked_attention(q, k, vpad, causal=True, q_chunk=cfg.attn_q_chunk)[..., :vd]
-        y = out.reshape(B, S, H * vd) @ p["wo"]
+        q = constrain(torch.cat([q_nope, q_pe], -1), "dp", None, "tp", None)
+        out = _padded_attention(q, k, v, q_chunk=cfg.attn_q_chunk)
+        y = merge_heads(out, B, S, H * vd) @ p["wo"]
         if mode in STATELESS:
             return y, None
         return y, {"ckv": _prefill_cache(ckv, max_len, 0), "kpe": _prefill_cache(kpe, max_len, 0)}
@@ -457,7 +640,7 @@ def apply_mla(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *, mod
     ctx = torch.einsum("bhst,btr->bshr", pattn, ckv_f)  # latent context
     wv_b = p["wv_b"].reshape(r, H, vd)
     out = torch.einsum("bshr,rhv->bshv", ctx, wv_b.float()).to(x.dtype)
-    return out.reshape(B, S, H * vd) @ p["wo"], {"ckv": ckv_c, "kpe": kpe_c}
+    return merge_heads(out, B, S, H * vd) @ p["wo"], {"ckv": ckv_c, "kpe": kpe_c}
 
 
 # ---------------------------------------------------------------------------
@@ -494,11 +677,16 @@ def apply_ffn(cfg: ModelConfig, seg: Segment, p: Params, x, *, mode: str, state=
     check_mode(mode)
     if seg.ffn in ("swiglu", "geglu"):
         gate = _act(cfg, x @ p["w1"]) if seg.ffn == "swiglu" else gelu(x @ p["w1"])
-        return (gate * (x @ p["w3"])) @ p["w2"], None
+        h = constrain(gate * (x @ p["w3"]), "dp", None, "tp")
+        return constrain(h @ p["w2"], "dp", None, None), None
     if seg.ffn == "gelu_mlp":
-        return gelu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"], None
+        h = constrain(gelu(x @ p["w1"] + p["b1"]), "dp", None, "tp")
+        return constrain(h @ p["w2"] + p["b2"], "dp", None, None), None
     if seg.ffn == "rwkv_cmix":
         xs = state if mode == "decode" else F.pad(x, (0, 0, 1, 0))[:, :-1]
+        # x and its shifted copy with the batch sharded only: DTensor may
+        # shard the sequence, and the products flatten (batch, sequence)
+        x, xs = constrain(x, "dp", None, None), constrain(xs, "dp", None, None)
         xk = x + (xs - x) * p["mu_k"]
         xr = x + (xs - x) * p["mu_r"]
         k = torch.square(torch.relu(xk @ p["wk"]))
@@ -515,7 +703,7 @@ def ffn_init_state(cfg: ModelConfig, seg: Segment, batch: int, device=None):
 
 
 # ---------------------------------------------------------------------------
-# MoE: top-k routing with capacity-based dispatch (one token group)
+# MoE: top-k routing with capacity-based dispatch per data-parallel group
 # ---------------------------------------------------------------------------
 
 
@@ -562,6 +750,16 @@ def moe_route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor):
 
 
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE with capacity dispatch per token group.
+
+    Tokens are viewed as (G, T/G), G = ``dp_total()`` (1 outside a mesh, or
+    where it does not divide T): routing, sort and scatter are per group,
+    with capacity ``moe_capacity(cfg, T/G)``, so which tokens drop depends
+    on the data-parallel pool, as in the JAX package.  A plain tensor (one
+    group) takes the dispatch below; a DTensor takes ``_apply_moe_groups``.
+    """
+    if isinstance(x, DTensor):
+        return _apply_moe_groups(cfg, p, x)
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.moe_top_k
     xt = x.reshape(B * S, d)
@@ -577,6 +775,66 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.n_shared_experts:
         out = out + (_act(cfg, xt @ p["sw1"]) * (xt @ p["sw3"])) @ p["sw2"]
     return out.reshape(B, S, d)
+
+
+def _dispatch(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor):
+    """One group's routing (tokens xg (Tl, d)): (gate_vals (Tl, K), slot
+    (Tl*K,), the (E*C, d) dispatch buffer).  Dropped choices write the
+    overflow row E*C, which is cut off: no shape depends on the data."""
+    E, K = cfg.n_experts, cfg.moe_top_k
+    gate_vals, _, slot, C = moe_route(cfg, router, xg)
+    buf = xg.new_zeros((E * C + 1, xg.shape[-1]))
+    buf = buf.index_put((slot,), xg.repeat_interleave(K, dim=0))
+    return gate_vals, slot, buf[:E * C]
+
+
+def _apply_moe_groups(cfg: ModelConfig, p: Params, x: DTensor) -> DTensor:
+    """``apply_moe`` on DTensors: x (B, S, d) viewed as (G, T/G, d), G over
+    the data-parallel axes.  Each rank routes its own groups on its block
+    (``to_local``); the G-major dispatch buffer (G, E*C, d) becomes E-major
+    (E, G*C, d), experts over ``model``, in one redistribute (the JAX
+    package's expert-parallel all-to-all), the experts run there, and the
+    outputs come back G-major for each rank's gather by slot."""
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.moe_top_k
+    T = B * S
+    G = dp_total()
+    if T % G:
+        G = 1
+    Tl = T // G
+    # every reshape of the token dims below sits between two constraints,
+    # which lay out its gradient as its input (DTensor cannot view a batch
+    # sharded over more mesh dims than its new leading dim divides)
+    x = constrain(x, "dp", None, None)
+    xt = constrain(x.reshape(G, Tl, d), "dp", None, None)
+    pl = list(xt.placements)
+    # the router is replicated; each rank's gradient of it is its groups'
+    # share, a partial sum over the data-parallel axes
+    dp_axes = ("pod", "data", "model") if layout() == "dp_only" else ("pod", "data")
+    router = p["router"]
+    if isinstance(router, DTensor):
+        grad_pl = [Partial() if name in dp_axes else Replicate()
+                   for name in mesh.mesh_dim_names]
+        router = router.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=grad_pl)
+    xl = xt.to_local()
+    routed = [_dispatch(cfg, router, xl[g]) for g in range(xl.shape[0])]
+    C = moe_capacity(cfg, Tl)
+    buf = DTensor.from_local(torch.stack([r[2] for r in routed]), mesh, pl)  # (G, E*C, d)
+    bufe = constrain(buf.reshape(G, E, C, d).transpose(0, 1), "tp", "dp", None, None)
+    h = bufe.reshape(E, G * C, d)
+    g = _act(cfg, torch.bmm(h, p["w1"])) * torch.bmm(h, p["w3"])
+    y = torch.bmm(g, p["w2"]).reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+    yl = constrain(y, "dp", None, None).to_local()
+    outs = []
+    for i, (gates, slot, _) in enumerate(routed):
+        yg = torch.cat([yl[i], yl.new_zeros((1, d))])  # dropped choices read the zero row
+        outs.append((yg[slot].reshape(Tl, K, d) * gates[..., None].to(yg.dtype)).sum(1))
+    out = DTensor.from_local(torch.stack(outs), mesh, pl)
+    if cfg.n_shared_experts:
+        out = out + (_act(cfg, xt @ p["sw1"]) * (xt @ p["sw3"])) @ p["sw2"]
+    return constrain(out.reshape(B, S, d), "dp", None, None)
 
 
 def moe_load_balance_loss(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,14 @@ Entry points (functions of ``(params, cfg, ...)``, as in the JAX package):
   prefill(params, cfg, tokens, max_len=..., ...)       -> (last_logits, DecodeState)
   decode_step(params, cfg, tokens, state)              -> (logits, DecodeState)
   init_decode_state(cfg, batch, max_len, ...)          -> DecodeState (zeros)
+  greedy(params, cfg, tokens, max_len=..., steps=...)  -> (B, steps) greedy tokens
+
+Under ``distributed.act_sharding.use_mesh`` the same functions run on
+DTensor parameters placed by ``distributed.sharding``: each layer's weights
+are gathered over the data-parallel axes as it runs (``_traversal``), the
+embedding lookup and the head are vocab-parallel, and prefill lays its
+decode state out by the decode-state rules (the cache's sequence over
+``model``).
 
 ``prefix_embeds`` (B, P, d) are prepended to the text (VLM), and
 ``enc_embeds`` (B, Se, d) are the encoder's input frames (enc-dec).
@@ -39,10 +47,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, Segment
 from repro_torch.device import resolve_device
+from repro_torch.distributed import act_sharding
 from repro_torch.models import rglru, rwkv6
 from repro_torch.models.layers import (
     STATELESS,
@@ -150,6 +160,22 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _traversal(tree):
+    """A layer's DTensor weights gathered over the FSDP axes (the data-
+    parallel pool) and kept sharded over the tensor-parallel one, as the
+    JAX package's schema gathers weights per traversal: every product of
+    the layer is then local, or a partial sum over ``model``.  The gather's
+    backward is the gradients' reduce-scatter.  Plain tensors pass through."""
+    if isinstance(tree, dict):
+        return {key: _traversal(val) for key, val in tree.items()}
+    if not isinstance(tree, DTensor):
+        return tree
+    pool = ("pod", "data", "model") if act_sharding.layout() == "dp_only" else ("pod", "data")
+    pl = [Replicate() if (name in pool and p.is_shard()) else p
+          for name, p in zip(tree.device_mesh.mesh_dim_names, tree.placements)]
+    return tree if tuple(pl) == tuple(tree.placements) else tree.redistribute(tree.device_mesh, pl)
+
+
 def _unbind(tree, n: int) -> list:
     """A stacked tree -> its n per-layer trees, each leaf a view; the
     gradients of the n views are stacked into the leaf's in one step."""
@@ -175,8 +201,13 @@ def _write_back(stacked, i: int, new) -> None:
             _write_back(val, i, new[key])
         return
     dst = stacked[i]
-    if new.data_ptr() != dst.data_ptr():
+    if _storage(new) != _storage(dst):
         dst.copy_(new)
+
+
+def _storage(t) -> tuple:
+    t = t.to_local() if isinstance(t, DTensor) else t
+    return t.untyped_storage()._cdata, t.storage_offset()
 
 
 def _apply_block(cfg, seg, p, x, *, mode, positions, state, cache_len, enc_out, max_len):
@@ -211,7 +242,8 @@ def _run_segment(cfg, seg, sp, x, *, mode, positions, stacked_state=None, cache_
     layer under a checkpoint (its activations recomputed in backward)."""
     if mode == "train":
         def body(lp, h):
-            return _apply_block(cfg, seg, lp, h, mode=mode, positions=positions, state=None,
+            return _apply_block(cfg, seg, _traversal(lp), h, mode=mode, positions=positions,
+                                state=None,
                                 cache_len=None, enc_out=enc_out, max_len=max_len)[0]
 
         for lp in _unbind(sp, seg.repeat):
@@ -220,8 +252,9 @@ def _run_segment(cfg, seg, sp, x, *, mode, positions, stacked_state=None, cache_
     states = []
     for i in range(seg.repeat):
         st = None if stacked_state is None else _layer(stacked_state, i)
-        x, new = _apply_block(cfg, seg, _layer(sp, i), x, mode=mode, positions=positions,
-                              state=st, cache_len=cache_len, enc_out=enc_out, max_len=max_len)
+        lp = _traversal(_layer(sp, i))
+        x, new = _apply_block(cfg, seg, lp, x, mode=mode, positions=positions, state=st,
+                              cache_len=cache_len, enc_out=enc_out, max_len=max_len)
         if mode == "decode":
             _write_back(stacked_state, i, new)
         states.append(new)
@@ -238,16 +271,48 @@ def _run_segment(cfg, seg, sp, x, *, mode, positions, stacked_state=None, cache_
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding, not indexing: its backward sums repeated tokens' rows by
     # sorting, where the indexing backward accumulates with atomics on CUDA
-    x = F.embedding(tokens.long(), params["embed"]).to(dtype_of(cfg))
+    w = params["embed"]
+    if isinstance(w, DTensor):
+        x = _vocab_parallel(w, tokens).to(dtype_of(cfg))
+    else:
+        x = F.embedding(tokens.long(), w).to(dtype_of(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
-    return x
+    return act_sharding.constrain(x, "dp", None, None)
+
+
+def _vocab_parallel(w: DTensor, tokens) -> DTensor:
+    """The vocab-parallel lookup: the embedding (V, d) kept sharded over its
+    vocab only (its d gathered), the tokens with their batch over the data-
+    parallel axes; each rank looks up the tokens in its own rows (zeros for
+    the others), and the result is a partial sum over the vocab's mesh
+    dims, which the caller's constraint reduces.  Each rank's gradient of
+    its rows is its tokens' share: a partial sum over the data axes."""
+    from repro_torch.distributed.sharding import place
+
+    mesh = w.device_mesh
+    vocab_dims = [i for i, p in enumerate(w.placements) if p.is_shard() and p.dim == 0]
+    w_pl = [p if i in vocab_dims else Replicate() for i, p in enumerate(w.placements)]
+    spec = act_sharding.resolve(mesh, tokens.shape, ("dp",) + (None,) * (tokens.dim() - 1))
+    tok = place(mesh, tokens, spec)
+    grad_pl = [w_pl[i] if i in vocab_dims else
+               (Partial() if tok.placements[i].is_shard() else Replicate())
+               for i in range(mesh.ndim)]
+    wl = w.redistribute(mesh, w_pl).to_local(grad_placements=grad_pl)
+    coord, block = mesh.get_coordinate(), 0
+    for i in vocab_dims:
+        block = block * mesh.size(i) + coord[i]
+    idx = tok.to_local().long() - block * wl.shape[0]
+    mine = (idx >= 0) & (idx < wl.shape[0])
+    x = F.embedding(idx.clamp(0, wl.shape[0] - 1), wl) * mine[..., None].to(wl.dtype)
+    out_pl = [Partial() if i in vocab_dims else tok.placements[i] for i in range(mesh.ndim)]
+    return DTensor.from_local(x, mesh, out_pl)
 
 
 def _head_weights(cfg: ModelConfig, params: dict) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return params["embed"].T.to(dtype_of(cfg))
-    return params["lm_head"]
+        return _traversal(params["embed"]).T.to(dtype_of(cfg))
+    return _traversal(params["lm_head"])
 
 
 def _encoder_forward(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor,
@@ -293,11 +358,28 @@ def _forward(cfg, params, tokens, *, mode, prefix_embeds=None, enc_embeds=None, 
 
 def _xent_chunk(h: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor):
     """(sum of the masked token NLLs, count of unmasked labels), both f32."""
-    logits = (h @ w_head).float()
+    logits = _whole_last((h @ w_head).float())
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     return ((lse - tgt) * mask).sum(), mask.sum()
+
+
+def _whole_last(x):
+    """A DTensor with its last dim (the vocab) gathered on every rank, so
+    that picking each label's logit is local."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.dim() - 1
+    pl = [Replicate() if (p.is_partial() or (p.is_shard() and p.dim == last)) else p
+          for p in x.placements]
+    return x if tuple(pl) == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def argmax_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy tokens (int32) of logits (..., V); a vocab-sharded DTensor is
+    gathered first, so the argmax is each rank's own."""
+    return torch.argmax(_whole_last(logits), -1).to(torch.int32)
 
 
 def _chunked_xent(cfg: ModelConfig, h: torch.Tensor, w_head: torch.Tensor,
@@ -351,6 +433,11 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: in
         "cache_len": torch.full((B,), S + n_prefix, dtype=torch.int32, device=h.device),
         "segments": states,
     }
+    mesh = act_sharding.current_mesh()
+    if mesh is not None:  # the cache laid out by the decode-state rules
+        from repro_torch.distributed.sharding import decode_state_shardings
+
+        state = decode_state_shardings(cfg, mesh, B, state, act_sharding.layout())
     return logits, state
 
 
@@ -371,6 +458,22 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, state: dic
     h = apply_norm(cfg, params["final_norm"], x)
     logits = (h[:, 0, :] @ _head_weights(cfg, params)).float()
     return logits, {"cache_len": cache_len + 1, "segments": state["segments"]}
+
+
+def greedy(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
+           steps: int, prefix_embeds=None, enc_embeds=None) -> torch.Tensor:
+    """Greedy decoding: prefill ``tokens`` (B, S), then ``steps`` decode
+    steps, each feeding back the argmax.  Returns the (B, steps) int32
+    tokens (whole on every rank under a mesh)."""
+    logits, state = prefill(params, cfg, tokens, max_len=max_len, prefix_embeds=prefix_embeds,
+                            enc_embeds=enc_embeds)
+    out = []
+    for _ in range(steps):
+        nxt = argmax_tokens(logits)
+        nxt = nxt.full_tensor() if isinstance(nxt, DTensor) else nxt
+        out.append(nxt)
+        logits, state = decode_step(params, cfg, nxt, state)
+    return torch.stack(out, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -406,8 +509,11 @@ def _zeros_stacked(tree, n: int, dev):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, filled: int = 0,
                       *, device="cuda") -> dict:
-    """Zero decode state with capacity ``max_len`` and ``filled`` tokens."""
-    dev = resolve_device(device)
+    """Zero decode state with capacity ``max_len`` and ``filled`` tokens
+    (``device="meta"``: shapes and dtypes only)."""
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
     # one layer's skeleton on the meta device gives the shapes, allocating nothing
     segs = [_zeros_stacked(_layer_state_skeleton(cfg, seg, batch, max_len, "meta"), seg.repeat,
                            dev) for seg in cfg.segments]

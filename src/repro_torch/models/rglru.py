@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, Segment
+from repro_torch.distributed.act_sharding import constrain
 from repro_torch.models.layers import STATELESS, Init, check_mode, dtype_of, gelu
 
 f32 = torch.float32
@@ -86,8 +87,8 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def apply_rglru(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor, *, mode: str,
                 state=None, **_unused):
     check_mode(mode)
-    branch = x @ p["w_in1"]
-    gate = gelu(x @ p["w_in2"])
+    branch = constrain(x @ p["w_in1"], "dp", None, "tp")
+    gate = constrain(gelu(x @ p["w_in2"]), "dp", None, "tp")
 
     if mode != "decode":
         a, b = _gates(p, _causal_conv(p, branch))

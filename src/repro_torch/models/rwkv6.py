@@ -17,9 +17,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig, Segment
-from repro_torch.models.layers import STATELESS, Init, check_mode, dtype_of
+from repro_torch.distributed.act_sharding import constrain
+from repro_torch.models.layers import (STATELESS, Init, _local, check_mode, dtype_of,
+                                       merge_heads, split_heads)
 
 f32 = torch.float32
 
@@ -55,7 +58,7 @@ def _ddlerp(p: dict, x: torch.Tensor, xs: torch.Tensor):
     xxx = x + dx * p["mu_x"]
     a = torch.tanh(xxx @ p["tm_w1"])  # (B, S, 5A)
     B, S, _ = a.shape
-    a = a.reshape(B, S, 5, TIME_MIX_EXTRA_DIM)
+    a = split_heads(a, B, S, 5, TIME_MIX_EXTRA_DIM)
     mix = torch.einsum("bsfa,fad->bsfd", a, p["tm_w2"].to(a.dtype)) + p["mu_5"]
     return [x + dx * mix[:, :, i] for i in range(5)]
 
@@ -64,13 +67,13 @@ def _project(cfg: ModelConfig, p: dict, x: torch.Tensor, xs: torch.Tensor):
     H, N = cfg.rwkv_n_heads, cfg.rwkv_head_size
     B, S, d = x.shape
     m_w, m_k, m_v, m_r, m_g = _ddlerp(p, x, xs)
-    r = (m_r @ p["wr"]).reshape(B, S, H, N)
-    k = (m_k @ p["wk"]).reshape(B, S, H, N)
-    v = (m_v @ p["wv"]).reshape(B, S, H, N)
-    g = F.silu(m_g @ p["wg"])
+    r = constrain(split_heads(m_r @ p["wr"], B, S, H, N), "dp", None, "tp", None)
+    k = constrain(split_heads(m_k @ p["wk"], B, S, H, N), "dp", None, "tp", None)
+    v = constrain(split_heads(m_v @ p["wv"], B, S, H, N), "dp", None, "tp", None)
+    g = constrain(F.silu(m_g @ p["wg"]), "dp", None, "tp")
     # log decay, strictly negative; (B, S, H, N)
     lw = -torch.exp(p["w0"] + (torch.tanh(m_w @ p["wd_w1"]) @ p["wd_w2"]).float())
-    return r, k, v, g, lw.reshape(B, S, H, N)
+    return r, k, v, g, split_heads(lw, B, S, H, N)
 
 
 def _group_norm(cfg: ModelConfig, p: dict, y: torch.Tensor) -> torch.Tensor:
@@ -79,7 +82,7 @@ def _group_norm(cfg: ModelConfig, p: dict, y: torch.Tensor) -> torch.Tensor:
     yf = y.float()
     mu = yf.mean(-1, keepdim=True)
     var = ((yf - mu) ** 2).mean(-1, keepdim=True)
-    yn = ((yf - mu) * torch.rsqrt(var + 64e-5)).reshape(B, S, H * N)
+    yn = merge_heads((yf - mu) * torch.rsqrt(var + 64e-5), B, S, H * N)
     return yn * p["ln_scale"].float() + p["ln_bias"].float()
 
 
@@ -119,6 +122,44 @@ def _chunk_scan(r, k, v, lw, u, S0, chunk: int = 32):
     return torch.cat(ys, dim=1)[:, :S], Sprev
 
 
+def _chunk_scan_blocks(r, k, v, lw, u, S0, chunk: int = 32):
+    """``_chunk_scan`` on each rank's block when r is a DTensor: the scan is
+    independent per sequence and per head, so the blocks keep r's batch and
+    head shards (u's heads and S0's batch and heads laid out to match) and
+    gather the sequence and the head size."""
+    if not isinstance(r, DTensor):
+        return _chunk_scan(r, k, v, lw, u, S0, chunk)
+    mesh = r.device_mesh
+    pl = [p if (p.is_shard() and p.dim in (0, 2)) else Replicate() for p in r.placements]
+    u_pl = [Shard(0) if (p.is_shard() and p.dim == 2) else Replicate() for p in pl]
+    s_pl = [Shard(1) if (p.is_shard() and p.dim == 2) else p for p in pl]
+    y, S_fin = _chunk_scan(*(_local(t, mesh, pl) for t in (r, k, v, lw)), _local(u, mesh, u_pl),
+                           _local(S0, mesh, s_pl), chunk)
+    return DTensor.from_local(y, mesh, pl), DTensor.from_local(S_fin, mesh, s_pl)
+
+
+def _step(r1, k1, v1, lw1, Sm, u):
+    """One decode step of the recurrence: r1, k1, v1, lw1 (B, H, N), Sm (B,
+    H, N, N) -> (y (B, H, N), the new state)."""
+    kv = torch.einsum("bhn,bhm->bhnm", k1, v1)
+    y = torch.einsum("bhn,bhnm->bhm", r1, Sm + u[None, :, :, None] * kv)
+    return y, torch.exp(lw1)[..., None] * Sm + kv
+
+
+def _step_blocks(r1, k1, v1, lw1, Sm, u):
+    """``_step`` on each rank's block when r1 is a DTensor: the blocks keep
+    the state's batch and head shards, as ``_chunk_scan_blocks`` does."""
+    if not isinstance(r1, DTensor):
+        return _step(r1, k1, v1, lw1, Sm, u)
+    mesh = r1.device_mesh
+    sp = Sm.placements if isinstance(Sm, DTensor) else [Replicate()] * mesh.ndim
+    pl = [p if (p.is_shard() and p.dim in (0, 1)) else Replicate() for p in sp]
+    u_pl = [Shard(0) if (p.is_shard() and p.dim == 1) else Replicate() for p in pl]
+    y, S_new = _step(*(_local(t, mesh, pl) for t in (r1, k1, v1, lw1, Sm)),
+                     _local(u, mesh, u_pl))
+    return DTensor.from_local(y, mesh, pl), DTensor.from_local(S_new, mesh, pl)
+
+
 def timemix_init_state(cfg: ModelConfig, batch: int, device=None):
     H, N = cfg.rwkv_n_heads, cfg.rwkv_head_size
     return {"S": torch.zeros((batch, H, N, N), dtype=f32, device=device),
@@ -133,10 +174,14 @@ def apply_timemix(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor, *, m
     u = p["u"]
 
     if mode != "decode":
-        xs = F.pad(x, (0, 0, 1, 0))[:, :-1]
+        # x and its shifted copy with the batch sharded only: DTensor may
+        # shard the sequence, and the products flatten (batch, sequence)
+        x = constrain(x, "dp", None, None)
+        xs = constrain(F.pad(x, (0, 0, 1, 0))[:, :-1], "dp", None, None)
         r, k, v, g, lw = _project(cfg, p, x, xs)
         S0 = torch.zeros((B, H, N, N), dtype=f32, device=x.device)
-        y, S_fin = _chunk_scan(r.float(), k.float(), v.float(), lw, u, S0, chunk=cfg.rwkv_chunk)
+        y, S_fin = _chunk_scan_blocks(r.float(), k.float(), v.float(), lw, u, S0,
+                                      chunk=cfg.rwkv_chunk)
         out = (_group_norm(cfg, p, y).to(x.dtype) * g) @ p["wo"]
         if mode in STATELESS:
             return out, None
@@ -144,10 +189,7 @@ def apply_timemix(cfg: ModelConfig, seg: Segment, p: dict, x: torch.Tensor, *, m
 
     # decode
     r, k, v, g, lw = _project(cfg, p, x, state["x_prev"])
-    r1, k1, v1 = r[:, 0].float(), k[:, 0].float(), v[:, 0].float()
-    Sm = state["S"]  # (B, H, N, N)
-    kv = torch.einsum("bhn,bhm->bhnm", k1, v1)
-    y = torch.einsum("bhn,bhnm->bhm", r1, Sm + u[None, :, :, None] * kv)
-    S_new = torch.exp(lw[:, 0])[..., None] * Sm + kv
+    y, S_new = _step_blocks(r[:, 0].float(), k[:, 0].float(), v[:, 0].float(), lw[:, 0],
+                            state["S"], u)
     out = (_group_norm(cfg, p, y[:, None]).to(x.dtype) * g) @ p["wo"]
     return out, {"S": S_new, "x_prev": x}

@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
@@ -16,12 +17,26 @@ def value_and_grad(cfg: ModelConfig, params, batch: dict):
     """(loss, grads): the loss of ``lm.train_loss`` and its gradient with
     respect to every parameter leaf, as a tree shaped as ``params`` (leaves
     in the parameters' dtypes).  ``params`` themselves are not marked as
-    requiring grad: the step differentiates detached aliases of them."""
+    requiring grad: the step differentiates detached aliases of them.
+
+    On DTensor parameters (under a mesh) each gradient is laid out as its
+    parameter (the partial sums reduced and scattered) and the loss is
+    replicated."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     with torch.enable_grad():
         loss = lm.train_loss(unflatten(params, flat), cfg, batch)
         grads = torch.autograd.grad(loss, flat)
-    return loss.detach(), unflatten(params, list(grads))
+    grads = [_laid_out_as(g, p) for g, p in zip(grads, flat)]
+    return _laid_out_as(loss.detach(), None), unflatten(params, grads)
+
+
+def _laid_out_as(t, like):
+    """A DTensor ``t`` redistributed to ``like``'s placements (replicated
+    when ``like`` is None); a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    pl = like.placements if like is not None else [Replicate()] * t.device_mesh.ndim
+    return t if tuple(t.placements) == tuple(pl) else t.redistribute(t.device_mesh, pl)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[OptConfig] = None,
@@ -41,7 +56,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[OptConfig] = None,
         if not microbatch or microbatch <= 1:
             return value_and_grad(cfg, params, batch)
         acc_loss = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
-        acc_g = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves(params)]
+        acc_g = [torch.zeros_like(p, dtype=torch.float32) for p in leaves(params)]
         n = batch["tokens"].shape[0] // microbatch
         for i in range(microbatch):
             part = {key: x[i * n:(i + 1) * n] for key, x in batch.items()}

@@ -162,9 +162,12 @@ def test_train_launcher_feeds_encoder_frames_and_prefix_embeds(tmp_path, arch):
 
 
 def test_train_launcher_refuses_the_production_mesh(capsys):
+    """On a world of 1 the (data=32, model=8) mesh cannot be built: exit 2,
+    naming the 256 ranks it needs."""
     with pytest.raises(SystemExit) as e:
         train.main(["--arch", "qwen3-1.7b", "--production-mesh", "--device", "cpu"])
-    assert e.value.code == 2 and "queue A item 7" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert e.value.code == 2 and "needs 256 ranks" in err and "has 1" in err
 
 
 def test_train_example_trains_and_resumes(tmp_path):

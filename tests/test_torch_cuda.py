@@ -168,6 +168,29 @@ def test_decode_attention_kernel_length_zero_gives_zeros(cuda, chunk):
                                **F32)
 
 
+# the log-sum-exp output: both sides compute it in f32 from the same
+# inputs, the kernel in base 2 over its chunks, the plain version with
+# torch.logsumexp, so only rounding in the sums differs
+LSE = dict(rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [None, 7, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_log_sum_exp(cuda, chunk, dtype):
+    """The (output, log-sum-exp) pair against the plain version's, one chunk
+    or split; a length of 0 gives zeros and -inf."""
+    q, k, v = _attn_inputs(np.random.default_rng(5), 6, 16, 8, 128, 2048, dtype, cuda)
+    lengths = torch.tensor([0, 1, 33, 517, 2047, 2048], dtype=torch.int32, device=cuda)
+    out, lse = decode_attention(q, k, v, lengths, return_lse=True, _chunk=chunk)
+    torch.cuda.synchronize()
+    want, want_lse = decode_attention_ref(q, k, v, lengths, return_lse=True)
+    tol = F32 if dtype == torch.float32 else ATTN_BF16
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    assert lse.shape == (6, 16) and lse.dtype == torch.float32
+    assert torch.isneginf(lse[0]).all() and torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(lse[1:], want_lse[1:], **LSE)
+
+
 @pytest.mark.parametrize("chunk", [None, 32])
 def test_decode_attention_kernel_two_calls_bit_identical(cuda, chunk):
     """The partials combine in split order, whichever block finishes last."""

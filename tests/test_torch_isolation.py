@@ -25,7 +25,7 @@ COPIES = sorted(
     + [f"serving/{m}.py" for m in ("dispatch", "faults", "lifecycle", "workload", "ingress")]
     + [f"obs/{m}.py" for m in ("__init__", "trace", "attribution", "registry")]
     + [f"crossreq/{m}.py" for m in ("__init__", "popularity", "globalcache", "dedup")]
-    + ["server.py", "workflows.py"]
+    + ["server.py", "workflows.py", "analysis/memory_model.py"]
 )
 # repro-lint: copies under a wider rename, which also covers its policy's
 # zone prefixes (``repro/core/``) and its CLI's bare ``import repro``
