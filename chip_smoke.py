@@ -22,10 +22,14 @@
 4. The main path: ``Server(mode="hedra", nprobe=32)`` over ``RealBackend``,
    with qwen3-1.7b at full width and depth (28 layers, bf16, seeded random
    weights) and the hybrid retrieval engine (512 device-resident clusters),
-   serves 8 requests of the paper's five workflows.  Every kernel's launch
-   count is set to 0 just before and read just after; each must be > 0.
-   The kernels are then held against their plain versions once more, on
-   inputs the main path itself gave them.
+   serves 8 requests of the paper's five workflows.  The engine's decode
+   step is one CUDA graph, captured when the engine is built and replayed
+   at each step; each replay adds its 28 ``decode_attention`` launches to
+   the kernel's count.  Every kernel's launch count is set to 0 just
+   before and read just after; each must be > 0.  The kernels are then
+   held against their plain versions once more, on inputs the main path
+   itself gave them (the decode recorder goes in before the engine is
+   built, so it sees the capture).
 5. Outputs checked by the repo's own means: device-path retrieval against
    the host path on the real index, and decode (the kernel) against
    prefill (plain attention) on a full-width model cut to 2 layers, in f32.
@@ -60,8 +64,12 @@
    gave the kernels): each kernel, its plain version and, where there is
    one, one PyTorch call computing the same function, beside the least time the
    card could take for that work and the time of one ``torch.sum`` over as
-   many bytes; ``ivf_scan`` also at a fixed shape made from SEED (17 real
-   clusters, one real query a group, k 5), which the main path's varying
+   many bytes; qwen3's decode step at phase 4's state, eager (the step
+   body op by op) and replayed (the captured graph), beside the bytes it
+   must move over the card's memory rate, and one of each under
+   ``torch.profiler`` (device ops, device-busy and wall time, the
+   costliest kernels); ``ivf_scan`` also at a fixed shape made from SEED
+   (17 real clusters, one real query a group, k 5), which the main path's varying
    G does not give; ``topk_merge`` also at pod scale (Q 8192, k 32, m 96)
    on random lists and on sorted ones as ``make_sharded_search`` gives
    them, each also at the other chunk sizes of its sorting network.
@@ -69,15 +77,20 @@
    and depth (27 layers, 15.71 B params, bf16, seeded random weights) served
    as phase 4 serves qwen3, over phase 4's index and a fresh hybrid engine
    (phases 4-9's stacks freed first); ``ivf_scan`` must launch (MLA decodes
-   in latent space, without ``decode_attention``).  One decode step timed,
-   peak memory printed; decode against prefill on 2 full-width f32 layers
-   (the dense one and one MoE layer, capacity past any drop).
+   in latent space, without ``decode_attention``).  Its decode step timed
+   eager and replayed as in phase 6, peak memory printed; decode against
+   prefill on 2 full-width f32 layers (the dense one and one MoE layer,
+   capacity past any drop).
 11. The rest of the zoo at full width, one model at a time, each cut to its
    first segment period in f32: decode against prefill for phi3, stablelm,
    qwen1.5 (qkv bias), llama4-scout (MoE), recurrentgemma (RG-LRU, RG-LRU,
    local attention; prompts of 1000 and 2100 tokens, either side of its
    2048-row ring), rwkv6, paligemma (256 prefix embeddings) and whisper
-   (2 encoder layers over 1500 frames, cross-attention).  Then qwen3-1.7b at
+   (2 encoder layers over 1500 frames, cross-attention).  Every
+   decoder-only family (qwen3 and deepseek too), cut to 2-3 layers in f32,
+   is served by a captured engine and by one running its step body op by
+   op: 4 prompts through 2 slots, retired and refilled mid-stream, to the
+   same greedy tokens.  Then qwen3-1.7b at
    full depth in bf16 with the int8 KV cache against the bf16 cache: cosine
    > 0.999 at each of 8 decode steps, and the card's int8 codes and
    scales equal the CPU's bit for bit.
@@ -180,6 +193,10 @@ ZOO = (("phi3-mini-3.8b", 2, (300,)), ("stablelm-12b", 2, (300,)), ("qwen1.5-110
        ("rwkv6-1.6b", 2, (300,)), ("paligemma-3b", 2, (300,)), ("whisper-medium", 2, (300,)))
 # qwen3's int8 KV cache against its bf16 cache: batch, prompt, decode steps
 INT8_RUN = (4, 512, 8)
+# each family's captured engine against its eager step body (phase 11):
+# prompt lengths, new tokens for each (unequal: slots retire mid-stream),
+# the cache's length
+ENGINE_PROMPTS, ENGINE_MAX_NEW, ENGINE_MAX_LEN = (40, 300, 120, 75), (3, 8, 5, 6), 512
 # decode_attention at each family's full-width decode shape (phase 3, bf16):
 # (arch, H, KV, dh, cache rows); recurrentgemma's cache is its ring
 ATTN_SHAPES = (("phi3-mini-3.8b", 32, 32, 96, 2048), ("stablelm-12b", 32, 8, 160, 2048),
@@ -674,32 +691,56 @@ def serve_main_path(torch, dev, index, embedder, arch=ARCH,
     log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
         f"{cfg.dtype}, {cfg.param_count()} params by param_count() "
         f"({2 * cfg.param_count()} bytes in bf16), init {time.perf_counter() - t0:.1f}s")
-    engine = GenerationEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN, eos_id=-1,
-                              device=dev)
-    hybrid = HybridRetrievalEngine(index, cache_capacity=CACHE_CAPACITY,
-                                   update_interval=CACHE_UPDATE_INTERVAL,
-                                   transit_substages=CACHE_TRANSIT, device=dev)
-    rng = np.random.default_rng(SEED + 3)
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int64)
-               for n in rng.integers(512, 1025, size=N_REQUESTS)]
-    server = build_server(engine, index, embedder, hybrid, prompts, max_new=MAX_NEW,
-                          nprobe=NPROBE)
-    # observe the inputs the main path hands each kernel (largest work kept)
+    # observe the inputs the main path hands each kernel (largest work kept).
+    # The engine's decode step is a CUDA graph captured when it is built, so
+    # the decode recorder goes in first: it sees the capture's calls, and
+    # the tensors it keeps (the last layer's q and lengths, views of the
+    # slab) hold what the last replay gave the kernel
     ivf_rec = Recorder(hybrid_mod.ivf_scan, lambda q, gc, slab, valid, k: q.shape[0])
     order = itertools.count()  # decode: keep the last call (longest cache)
     attn_rec = Recorder(layers_mod.decode_attention, lambda q, k, v, lengths: next(order))
     hybrid_mod.ivf_scan, layers_mod.decode_attention = ivf_rec, attn_rec
-    names = [WORKFLOW_NAMES[i % len(WORKFLOW_NAMES)] for i in range(N_REQUESTS)]
-    generated = []
-    orig_step = engine.step
-
-    def step():
-        out = orig_step()
-        generated.extend(out.values())
-        return out
-
-    engine.step = step
     try:
+        t0 = time.perf_counter()
+        engine = GenerationEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN, eos_id=-1,
+                                  device=dev)
+        sync(torch, dev)
+        log(f"  engine: decode step captured as one CUDA graph: {engine._graph is not None} "
+            f"({engine._graph_launches} decode_attention launches a replay; warm-up + capture "
+            f"{time.perf_counter() - t0:.2f}s)")
+        need(engine._graph is not None or dev.type != "cuda",
+             "the engine did not capture its decode step on the card")
+        hybrid = HybridRetrievalEngine(index, cache_capacity=CACHE_CAPACITY,
+                                       update_interval=CACHE_UPDATE_INTERVAL,
+                                       transit_substages=CACHE_TRANSIT, device=dev)
+        rng = np.random.default_rng(SEED + 3)
+        prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int64)
+                   for n in rng.integers(512, 1025, size=N_REQUESTS)]
+        server = build_server(engine, index, embedder, hybrid, prompts, max_new=MAX_NEW,
+                              nprobe=NPROBE)
+        names = [WORKFLOW_NAMES[i % len(WORKFLOW_NAMES)] for i in range(N_REQUESTS)]
+        generated = []
+        # host-clock seconds in decode steps (each ends in a sync) and in
+        # prefills (each ends in reading its first token)
+        spent = {"steps": 0, "decode": 0.0, "prefills": 0, "prefill": 0.0}
+        orig_step, orig_add = engine.step, engine.add_sequence
+
+        def step():
+            spent["steps"] += bool(engine.seqs)
+            t = time.perf_counter()
+            out = orig_step()
+            spent["decode"] += time.perf_counter() - t
+            generated.extend(out.values())
+            return out
+
+        def add_sequence(*args, **kwargs):
+            t = time.perf_counter()
+            sid = orig_add(*args, **kwargs)
+            spent["prefill"] += time.perf_counter() - t
+            spent["prefills"] += 1
+            return sid
+
+        engine.step, engine.add_sequence = step, add_sequence
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         ivf_scan.launches = 0
@@ -721,6 +762,10 @@ def serve_main_path(torch, dev, index, embedder, arch=ARCH,
         f"cache_misses={st['misses']} uploads={st['uploads']}")
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else "not measured"
     log(f"  launches: {launches}  max_memory_allocated={peak} bytes")
+    log(f"  host clock: {spent['steps']} decode steps (each a replay of the captured graph) "
+        f"{spent['decode']:.3f}s ({1e3 * spent['decode'] / max(spent['steps'], 1):.2f} ms a "
+        f"step), {spent['prefills']} prefills {spent['prefill']:.3f}s, the rest (retrieval, "
+        f"scheduling) {wall - spent['decode'] - spent['prefill']:.3f}s of {wall:.3f}s")
     need(m.finished == N_REQUESTS, f"finished {m.finished} of {N_REQUESTS} requests")
     for name in kernels:
         need(launches[name] > 0, f"the main path launched {name} no time")
@@ -846,17 +891,12 @@ def serve_moe_path(torch, dev, index, embedder):
     full width and depth, served as phase 4 serves qwen3; one decode step
     timed; then decode against prefill on 2 full-width f32 layers."""
     from repro_torch.configs import get_config
-    from repro_torch.models import lm
 
     launches, _, _, hybrid, engine = serve_main_path(torch, dev, index, embedder, arch=MOE_ARCH,
                                                      kernels=("ivf_scan",))
     if dev.type == "cuda":
-        step_ms = time_ms(torch, dev, lambda: lm.decode_step(engine.params, engine.cfg,
-                                                             engine._last_tokens, engine.state),
-                          iters=5, warmup=1)
-        log(f"  {MOE_ARCH} decode step B={engine.max_batch} ({engine.cfg.n_layers} layers, "
-            f"max_len {engine.max_len}): {step_ms:.3f} ms; peak max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated()} bytes")
+        time_decode_step(torch, dev, engine, MOE_ARCH, eager_iters=3)
+        log(f"  {MOE_ARCH} peak max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     need(check_retrieval_against_host(torch, index, hybrid, embedder) > 0,
          "phase 10: no probed cluster was resident for the retrieval check")
     del engine, hybrid
@@ -869,8 +909,10 @@ def serve_moe_path(torch, dev, index, embedder):
 
 def zoo_checks(torch, dev):
     """Phase 11: each family of ZOO at full width, cut to its first segment
-    period (f32), decode against prefill; then qwen3-1.7b at full depth in
-    bf16 with the int8 KV cache against the bf16 cache."""
+    period (f32), decode against prefill; every decoder-only family (qwen3
+    and deepseek too, cut to 2 layers) served by a captured engine and by
+    its step body run op by op, to the same greedy tokens; then qwen3-1.7b
+    at full depth in bf16 with the int8 KV cache against the bf16 cache."""
     from repro_torch.configs import get_config
 
     for arch, n_layers, lengths in ZOO:
@@ -879,7 +921,59 @@ def zoo_checks(torch, dev):
         for S in lengths:
             decode_vs_prefill(torch, dev, cfg, 4 if S <= 512 else 2, S, SEED + 12, arch)
         free(torch, dev)
+    for arch, n_layers in ((ARCH, 2), (MOE_ARCH, 2), *((a, n) for a, n, _ in ZOO)):
+        base = get_config(arch)
+        if not base.is_encoder_decoder:
+            captured_vs_eager(torch, dev, cut_depth(base, n_layers, dtype="float32"),
+                              SEED + 14, arch)
+            free(torch, dev)
     int8_cosine(torch, dev, get_config(ARCH), *INT8_RUN)
+
+
+def serve_stream(engine, prompts):
+    """Admit ``prompts`` (with ``ENGINE_MAX_NEW`` tokens each) whenever a
+    slot frees up and step until all are done: slots retire and are
+    refilled mid-stream.  Returns (each sequence's tokens, steps)."""
+    pending = list(zip(prompts, ENGINE_MAX_NEW))
+    seqs, steps = [], 0
+    while pending or engine.seqs:
+        while pending and engine.can_admit():
+            prompt, max_new = pending.pop(0)
+            seqs.append(engine.seqs[engine.add_sequence(prompt, max_new=max_new)])
+        engine.step()
+        steps += 1
+    return [list(s.tokens) for s in seqs], steps
+
+
+def captured_vs_eager(torch, dev, cfg, seed, what):
+    """Two engines over one set of weights serve the same prompts through 2
+    slots: one replays its captured graph, the other (its graph dropped)
+    runs the same step body op by op.  The greedy tokens must be equal."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import GenerationEngine
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = lm.init_params(cfg, gen, device=dev)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in ENGINE_PROMPTS]
+    runs = []
+    for captured in (True, False):
+        engine = GenerationEngine(cfg, params, max_batch=2, max_len=ENGINE_MAX_LEN, eos_id=-1,
+                                  device=dev)
+        need(engine._graph is not None, f"{what}: the engine did not capture its decode step")
+        if not captured:
+            engine._graph = None  # the step body, op by op
+        runs.append(serve_stream(engine, prompts))
+        del engine
+    (got, steps), (want, _) = runs
+    same = got == want
+    log(f"  {what} ({cfg.n_layers} layers {cfg.dtype}): captured engine vs its eager step body, "
+        f"{len(prompts)} prompts through 2 slots, {steps} steps: greedy tokens "
+        f"{'equal' if same else 'DIFFER'} ({sum(map(len, got))} tokens)")
+    need(same, f"{what}: the captured engine's greedy tokens differ from the eager body's")
 
 
 def int8_cosine(torch, dev, cfg, B, S, steps):
@@ -2202,6 +2296,84 @@ def mesh_phase(torch, dev, out_dir):
     return launches, err
 
 
+def step_bytes(engine):
+    """The bytes one decode step of ``engine`` must move at its current
+    state: every parameter read once (the tied embedding once, as the
+    head), each cache's rows up to each slot's ``cache_len + 1`` read once
+    (the row written counted among them), every other state leaf read and
+    written once."""
+    from repro_torch.training.tree import leaves
+
+    params = sum(t.numel() * t.element_size() for t in leaves(engine.params))
+    lens = (engine.state["cache_len"].long() + 1).cpu()
+    state = 0
+    for seg in engine.state["segments"]:
+        for group in seg.values():
+            for name, t in (group.items() if isinstance(group, dict) else [("", group)]):
+                if name in ("k", "v", "k_scale", "v_scale", "ckv", "kpe"):
+                    rows = t.shape[2]  # (L, B, rows, ...)
+                    row_bytes = t[0, 0, 0].numel() * t.element_size()
+                    state += t.shape[0] * int(lens.clamp(max=rows).sum()) * row_bytes
+                else:
+                    state += 2 * t.numel() * t.element_size()
+    return params + state
+
+
+def profile_once(torch, fn):
+    """(device ops, device-busy ms, wall ms, the 3 costliest kernels) of one
+    ``fn()`` under ``torch.profiler`` (CPU and CUDA activities), after one
+    call outside it; busy time is the union of the ops' device intervals,
+    wall time the host clock around the call and its synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return len(spans), busy / 1e3, wall, [(n[:60], round(us / 1e3, 4)) for n, us in top]
+
+
+def time_decode_step(torch, dev, engine, what, eager_iters=5):
+    """The engine's decode step at its current state, eager (its step body
+    op by op) and replayed (the captured graph), with CUDA events, beside
+    the byte floor; then one of each under the profiler.  Returns
+    (eager ms, replay ms)."""
+    need(engine._graph is not None, f"{what}: the engine holds no captured graph")
+    n_bytes = step_bytes(engine)
+    floor_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    eager = time_ms(torch, dev, engine._decode, iters=eager_iters, warmup=1)
+    replay = time_ms(torch, dev, engine._graph.replay, iters=20)
+    log(f"  {what} decode step B={engine.max_batch} ({engine.cfg.n_layers} layers, Σ cache_len "
+        f"{int(engine.state['cache_len'].sum())}): eager {eager:.3f} ms, replayed graph "
+        f"{replay:.3f} ms ({eager / replay:.1f}x); byte floor {floor_ms:.3f} ms ({n_bytes} bytes "
+        f"at {HBM_BYTES_PER_S / 1e12} TB/s; the replay at {100 * floor_ms / replay:.1f}% of it)")
+    for name, fn in (("eager", engine._decode), ("replay", engine._graph.replay)):
+        n_ops, busy, wall, top = profile_once(torch, fn)
+        if n_ops == 0:
+            log(f"  profiler, one {name} step: no device activity traced (not measured); "
+                f"wall {wall:.3f} ms")
+            continue
+        log(f"  profiler, one {name} step: {n_ops} device ops, device busy {busy:.3f} ms of "
+            f"{wall:.3f} ms wall ({100 * busy / wall:.1f}%); costliest {top}")
+    return eager, replay
+
+
 def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
     """Phase 6: each kernel, its plain version and (decode, merge) one
     PyTorch call, timed on the inputs the main path and the sharded search
@@ -2215,7 +2387,6 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
     from repro_torch.kernels.ivf_scan import ref as ivf_ref
     from repro_torch.kernels.topk_merge import ops as merge_ops
     from repro_torch.kernels.topk_merge import ref as merge_ref
-    from repro_torch.models import lm
 
     def time_ivf(q, gc, slab, valid, k, what):
         G, QB, d = q.shape
@@ -2267,12 +2438,11 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
         f"(max |SDPA - plain| {lib_err:.3e}), bound {attn_bound:.4f} ms ({attn_by}); one "
         f"torch.sum over as many bytes {read_floor_ms(torch, dev, attn_bytes):.4f} ms")
     # the decode step those launches sit in: all layers at the same state
-    step_ms = time_ms(torch, dev, lambda: lm.decode_step(engine.params, engine.cfg,
-                                                    engine._last_tokens, engine.state), iters=5)
+    eager_ms, replay_ms = time_decode_step(torch, dev, engine, ARCH)
     n_layers = engine.cfg.n_layers
-    log(f"  decode step B={B} ({n_layers} layers, eager PyTorch + {n_layers} decode_attention "
-        f"launches): {step_ms:.3f} ms; attention kernels {n_layers * attn_ms:.3f} ms of it "
-        f"({100 * n_layers * attn_ms / step_ms:.1f}%)")
+    log(f"  its {n_layers} decode_attention launches: {n_layers * attn_ms:.3f} ms, "
+        f"{100 * n_layers * attn_ms / eager_ms:.1f}% of the eager step, "
+        f"{100 * n_layers * attn_ms / replay_ms:.1f}% of the replay")
 
     # beside the wrapper's chunk, the network's other choices: at the
     # sharded input (16 rows: one 64-key chunk holds a row) K'-key chunks
@@ -2474,6 +2644,7 @@ def main() -> int:
     log(f"  total {time.perf_counter() - t_all:.1f}s")
     need(all(np.isfinite([r["ms"], r["plain_ms"], r["bound_ms"]]).all() for r in kernels),
          "a time is not finite")
+    log(smi_line)  # again, beside the results, for a reader of the output's end
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -116,6 +116,7 @@ def check(rc: int, what: str) -> None:
 
 _sm_counts: dict[int, int] = {}
 _counters: dict[tuple[str, int], torch.Tensor] = {}
+_outgrown: list[torch.Tensor] = []
 
 
 def sm_count(dev) -> int:
@@ -132,10 +133,14 @@ def counters(name: str, dev, n: int):
     """``n`` int32 completion counters of kernel ``name`` on ``dev``, zero
     between launches: allocated once per device and reused, since every
     launch that counts leaves them at zero again.  Launches of one kernel
-    must therefore not run concurrently on two streams of one device."""
+    must therefore not run concurrently on two streams of one device.  A
+    buffer outgrown by a larger launch is kept, never freed: a captured
+    CUDA graph may still launch with its address."""
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     t = _counters.get((name, idx))
     if t is None or t.numel() < n:
+        if t is not None:
+            _outgrown.append(t)
         size = max(n, 2 * t.numel() if t is not None else 1024)
         t = _counters[(name, idx)] = torch.zeros(size, dtype=torch.int32,
                                                  device=torch.device("cuda", idx))

@@ -763,13 +763,10 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.moe_top_k
     xt = x.reshape(B * S, d)
-    gate_vals, _, slot, C = moe_route(cfg, p["router"], xt)
-    keep = slot < E * C
-    buf = torch.zeros((E * C, d), dtype=x.dtype, device=x.device)
-    buf[slot[keep]] = xt.repeat_interleave(K, dim=0)[keep]
-    h = buf.view(E, C, d)
+    gate_vals, slot, buf = _dispatch(cfg, p["router"], xt)
+    h = buf.view(E, -1, d)
     g = _act(cfg, torch.bmm(h, p["w1"])) * torch.bmm(h, p["w3"])
-    y = torch.cat([torch.bmm(g, p["w2"]).reshape(E * C, d), buf.new_zeros((1, d))])
+    y = torch.cat([torch.bmm(g, p["w2"]).reshape(-1, d), buf.new_zeros((1, d))])
     y_tok = y[slot].reshape(B * S, K, d)  # dropped choices read the zero row
     out = (y_tok * gate_vals[..., None].to(y.dtype)).sum(1)
     if cfg.n_shared_experts:
@@ -780,11 +777,13 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def _dispatch(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor):
     """One group's routing (tokens xg (Tl, d)): (gate_vals (Tl, K), slot
     (Tl*K,), the (E*C, d) dispatch buffer).  Dropped choices write the
-    overflow row E*C, which is cut off: no shape depends on the data."""
+    overflow row E*C, which is cut off: no shape depends on the data, and
+    nothing waits for the device (a CUDA graph captures it)."""
     E, K = cfg.n_experts, cfg.moe_top_k
+    Tl, d = xg.shape
     gate_vals, _, slot, C = moe_route(cfg, router, xg)
-    buf = xg.new_zeros((E * C + 1, xg.shape[-1]))
-    buf = buf.index_put((slot,), xg.repeat_interleave(K, dim=0))
+    buf = xg.new_zeros((E * C + 1, d))
+    buf = buf.index_put((slot,), xg[:, None].expand(Tl, K, d).reshape(Tl * K, d))
     return gate_vals, slot, buf[:E * C]
 
 

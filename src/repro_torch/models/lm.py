@@ -277,7 +277,10 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor
     else:
         x = F.embedding(tokens.long(), w).to(dtype_of(cfg))
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+        # the scale rounded to x's dtype, as in JAX; torch.full fills on the
+        # device (torch.tensor would copy from the host, which a CUDA graph
+        # cannot capture)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return act_sharding.constrain(x, "dp", None, None)
 
 

@@ -11,6 +11,22 @@ This engine is what ``RealBackend`` binds to.  ``step()`` ends in a
 ``.cpu()`` of the next tokens, which waits for the device, so the time
 ``RealBackend.gen_duration`` measures around it is the decode's, not the
 launches'.
+
+The step body (``_decode``) is a function of tensors that never move: the
+slab's leaves, ``cache_len``, the last and next tokens and the active-slot
+mask, each written in place.  On CUDA the engine captures that body once,
+at construction, as one CUDA graph, and each ``step()`` copies the mask in
+and replays it: one launch a step, the port's form of the JAX engine's
+``jax.jit(_decode_impl, donate_argnums=(1,))``.  The capture is preceded
+by one eager warm-up step on the capture's stream (it builds the kernels,
+allocates their counters and cuBLAS's workspace) and followed by a reset
+of every buffer and of the sampler's generator, so a fresh engine starts
+from zeros and ``seed``.  A capture or replay that fails raises; the
+engine never carries on eagerly on CUDA.  Parameters or state that hold
+a DTensor (the mesh paths: ``lm._traversal``, ``layers._sharded_decode``)
+are not captured: DTensor's sharding propagation runs on the host at each
+op, so the engine runs the same body eagerly for them.  On the CPU the
+body runs eagerly.
 """
 from __future__ import annotations
 
@@ -19,11 +35,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models import lm
 from repro_torch.serving.sampler import SamplerConfig, sample
+from repro_torch.training.tree import leaves
 
 
 @dataclasses.dataclass
@@ -67,18 +86,62 @@ class GenerationEngine:
         self._next_id = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self._last_tokens = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
-        self._active = np.zeros((max_batch,), bool)
+        dev = self.device
+        self._last_tokens = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
+        self._next_tokens = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
+        self._active_dev = torch.zeros((max_batch,), dtype=torch.bool, device=dev)
+        # the slot bookkeeping writes the mask on the host, in pinned memory
+        # on CUDA, from where each step copies it in
+        self._active_host = torch.zeros((max_batch,), dtype=torch.bool,
+                                        pin_memory=dev.type == "cuda")
+        self._active = self._active_host.numpy()
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_launches = 0  # decode_attention launches a replay makes
+        if dev.type == "cuda" and not _holds_dtensor([params, self.state]):
+            self._capture(seed)
 
     # ------------------------------------------------------------- internals
-    def _decode(self, active: torch.Tensor) -> torch.Tensor:
-        logits, self.state = lm.decode_step(self.params, self.cfg, self._last_tokens,
-                                            self.state)
-        nxt = sample(logits, self._gen, self.sampler)
+    def _buffers(self) -> list[torch.Tensor]:
+        """Every tensor the step body reads or writes besides the params:
+        the captured graph's inputs and outputs, at fixed addresses."""
+        return [self.state["cache_len"], *leaves(self.state["segments"]), self._last_tokens,
+                self._next_tokens, self._active_dev]
+
+    def _decode(self) -> None:
+        """The step body: one decode step over the slab, every result written
+        in place (the K/V rows and recurrent states into the slab, the
+        sampled tokens into ``_next_tokens`` and ``_last_tokens``)."""
+        logits, _ = lm.decode_step(self.params, self.cfg, self._last_tokens, self.state)
+        self._next_tokens.copy_(sample(logits, self._gen, self.sampler))
         # frozen slots keep emitting pad; their cache_len must not grow
-        cl = self.state["cache_len"]
-        self.state["cache_len"] = torch.where(active, cl, cl - 1)
-        return nxt
+        self.state["cache_len"].add_(self._active_dev)
+        self._last_tokens.copy_(self._next_tokens)
+
+    def _capture(self, seed: int) -> None:
+        """Warm up, capture ``_decode`` as one CUDA graph, then reset every
+        buffer and the generator to their initial values."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        with torch.cuda.device(dev):
+            # the kernels' counters allow no concurrent launches: the side
+            # stream starts after all work queued on the current one
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._decode()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            if self.sampler.temperature > 0.0:
+                graph.register_generator_state(self._gen)  # each replay draws anew
+            n0 = decode_attention.launches
+            with torch.cuda.graph(graph, stream=side):
+                self._decode()
+            # recorded, not run: each replay adds them (step())
+            self._graph_launches = decode_attention.launches - n0
+            decode_attention.launches = n0
+            for t in self._buffers():
+                t.zero_()
+        self._gen.manual_seed(seed)
+        self._graph = graph
 
     def _insert(self, one_state: dict, slot: int) -> None:
         """Copy a one-sequence prefill state into slab slot ``slot``: every
@@ -138,11 +201,14 @@ class GenerationEngine:
         """One decode step over the slab; returns {seq_id: new_token}."""
         if not self.seqs:
             return {}
-        active = torch.from_numpy(self._active.copy()).to(self.device)
-        nxt = self._decode(active)
-        self._last_tokens = nxt
+        self._active_dev.copy_(self._active_host, non_blocking=True)
+        if self._graph is not None:
+            self._graph.replay()
+            decode_attention.launches += self._graph_launches
+        else:
+            self._decode()
         out: dict[int, int] = {}
-        nxt_np = nxt.cpu().numpy()  # waits for the device (see module docstring)
+        nxt_np = self._next_tokens.cpu().numpy()  # waits for the device (module docstring)
         for sid, seq in list(self.seqs.items()):
             if seq.done:
                 continue
@@ -165,3 +231,7 @@ class GenerationEngine:
     @property
     def batch_size(self) -> int:
         return len(self.seqs)
+
+
+def _holds_dtensor(tree) -> bool:
+    return any(isinstance(t, DTensor) for t in leaves(tree))

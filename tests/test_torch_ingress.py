@@ -7,9 +7,11 @@ and a ``DurationTape``.  Both, saved as JSON, replay into a fresh JAX stack
 and into a fresh port stack built from the converted params and the JAX
 index's numpy fields: the JAX replay reproduces the recorded fingerprints
 bit for bit, and the port's replay matches it event by event (kinds and
-times identical, payload floats within rtol 1e-4 / atol 1e-5).  A
-closed-loop run of the port replays in the port bit for bit, and in the
-JAX package to the same timeline.
+times identical, payload floats within rtol 1e-4 / atol 1e-5), taking the
+device path exactly as often as the JAX replay (how often depends on the
+recording's sub-stage mix, so a hand-built trace covers the device path
+for certain).  A closed-loop run of the port replays in the port bit for
+bit, and in the JAX package to the same timeline.
 """
 import json
 
@@ -122,6 +124,22 @@ def _warm(hybrid, builder_cls):
     return hybrid
 
 
+def _count_device_scans(hybrid):
+    """From here on, count ``hybrid``'s device-path scans and the items they
+    carry (its ``_device_scan``, which both packages' engines share)."""
+    counts = {"scans": 0, "items": 0}
+    scan = hybrid._device_scan
+
+    def counted(*args, **kwargs):
+        n = scan(*args, **kwargs)
+        counts["scans"] += 1
+        counts["items"] += n
+        return n
+
+    hybrid._device_scan = counted
+    return counts
+
+
 def jax_stack(w):
     """A fresh stack as the JAX launcher builds one for ``--wallclock``."""
     idx, cfg = w["jidx"], w["jcfg"]
@@ -171,20 +189,50 @@ def test_jax_wallclock_run_replays_in_both_packages(world, jax_recording):
     rec, trace_json, tape_json = jax_recording
     # the JAX replay: the recorded fingerprints, bit for bit
     js = jax_stack(world)
+    js.device_scans = _count_device_scans(js.backend.hybrid)
     jtape = jax_ingress.DurationTape.from_dict(json.loads(tape_json))
     jax_ingress.tape_backend(js.backend, jtape, mode="replay")
     jax_ingress.replay_trace(js, jax_ingress.ArrivalTrace.from_dict(json.loads(trace_json)))
     assert js.fingerprints() == rec.fingerprints()
     # the port's replay of the same JSON files: the same timeline
     ts = port_stack(world)
+    tcount = _count_device_scans(ts.backend.hybrid)
     n0 = ivf_scan.plain_calls
     ttape = ingress.DurationTape.from_dict(json.loads(tape_json))
     ingress.tape_backend(ts.backend, ttape, mode="replay")
     tm = ingress.replay_trace(ts, ingress.ArrivalTrace.from_dict(json.loads(trace_json)))
     assert tm.finished == 6 and ttape.remaining() == 0 == jtape.remaining()
-    assert ivf_scan.plain_calls > n0  # the port's device path was taken
+    # the port's replay took the device path exactly as often as the JAX
+    # replay (how often depends on the recording's sub-stage mix), each
+    # time through the port's ivf_scan
+    assert tcount == js.device_scans
+    assert ivf_scan.plain_calls - n0 == tcount["scans"]
+    tstats, jstats = ts.backend.hybrid.stats(), js.backend.hybrid.stats()
+    for key in ("hits", "misses", "stale_fallbacks"):
+        assert tstats[key] == jstats[key], key
     assert_timelines_match(ts, js)
     _close(tm.summary(), js.sched.metrics.summary(), "summary")
+
+
+def test_port_replay_of_a_hand_built_trace_takes_the_device_path(world):
+    """Three arrivals written by hand, each with a heartbeat: every
+    retrieval sub-stage probes 8 of the 12 clusters, 8 of which the warmed
+    cache holds, so the replay takes the device path whatever the wall
+    clock would have done."""
+    rows = []
+    for i, wf in enumerate(("one-shot", "hyde", "irg")):
+        rows.append(ingress.TraceRow(seq=-1, t_us=i * 2000.0, kind=ingress.HEARTBEAT, wid=0))
+        rows.append(ingress.TraceRow(seq=i, t_us=i * 2000.0, kind=ingress.ARRIVAL, workflow=wf,
+                                     text=f"query {i}", request_id=i))
+    trace = ingress.ArrivalTrace(rows)
+    ts = port_stack(world)
+    count = _count_device_scans(ts.backend.hybrid)
+    n0 = ivf_scan.plain_calls
+    tm = ingress.replay_trace(ts, ingress.ArrivalTrace.from_dict(json.loads(trace.to_json())))
+    assert tm.finished == 3
+    assert count["scans"] > 0 and count["items"] > 0
+    assert ivf_scan.plain_calls - n0 == count["scans"]
+    assert ts.backend.hybrid.stats()["hits"] > 0
 
 
 def test_trace_and_tape_json_cross_load(jax_recording):

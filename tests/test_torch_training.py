@@ -122,7 +122,10 @@ def test_adamw_update_matches_jax(dtype):
            "step": jnp.asarray(3, jnp.int32)}
     jp, jo, js = jax.jit(lambda p, g, s: jopt.adamw_update(jopt.OptConfig(**ocfg), p, g, s))(
         to_j(params), to_j(grads), jst)
-    tst = {"mu": jax.tree.map(torch.from_numpy, mu), "nu": jax.tree.map(torch.from_numpy, nu),
+    # copies: the port updates mu and nu in place, and the JAX arrays may
+    # alias the same numpy buffers while the dispatched jit still reads them
+    tst = {"mu": jax.tree.map(lambda a: torch.from_numpy(a.copy()), mu),
+           "nu": jax.tree.map(lambda a: torch.from_numpy(a.copy()), nu),
            "step": torch.tensor(3, dtype=torch.int32)}
     tp, to, ts = opt.adamw_update(opt.OptConfig(**ocfg), to_t(params), to_t(grads), tst)
     assert int(to["step"]) == int(jo["step"]) == 4
