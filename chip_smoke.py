@@ -25,7 +25,11 @@
    serves 8 requests of the paper's five workflows.  The engine's decode
    step is one CUDA graph, captured when the engine is built and replayed
    at each step; each replay adds its 28 ``decode_attention`` launches to
-   the kernel's count.  Every kernel's launch count is set to 0 just
+   the kernel's count.  Each admission (prefill + slot insert) is a CUDA
+   graph of its padded width, captured at the width's first admission and
+   replayed at the later ones: at most 2 of the 8 prefills run eagerly,
+   and the host clock splits the prefills that captured from those that
+   replayed; the prefill graphs' pool is printed.  Every kernel's launch count is set to 0 just
    before and read just after; each must be > 0.  The kernels are then
    held against their plain versions once more, on inputs the main path
    itself gave them (the decode recorder goes in before the engine is
@@ -68,7 +72,10 @@
    body op by op) and replayed (the captured graph), beside the bytes it
    must move over the card's memory rate, and one of each under
    ``torch.profiler`` (device ops, device-busy and wall time, the
-   costliest kernels); ``ivf_scan`` also at a fixed shape made from SEED
+   costliest kernels); qwen3's admission at padded widths 512 and 1024
+   into phase 4's slab, eager and replayed, beside each width's floor (its
+   bf16 GEMMs and f32 attention at their peaks, or its bytes), one of each
+   under the profiler, and the prefill graphs' pool; ``ivf_scan`` also at a fixed shape made from SEED
    (17 real clusters, one real query a group, k 5), which the main path's varying
    G does not give; ``topk_merge`` also at pod scale (Q 8192, k 32, m 96)
    on random lists and on sorted ones as ``make_sharded_search`` gives
@@ -77,8 +84,9 @@
    and depth (27 layers, 15.71 B params, bf16, seeded random weights) served
    as phase 4 serves qwen3, over phase 4's index and a fresh hybrid engine
    (phases 4-9's stacks freed first); ``ivf_scan`` must launch (MLA decodes
-   in latent space, without ``decode_attention``).  Its decode step timed
-   eager and replayed as in phase 6, peak memory printed; decode against
+   in latent space, without ``decode_attention``).  Its decode step and
+   its admission at width 1024 timed eager and replayed as in phase 6,
+   peak memory printed; decode against
    prefill on 2 full-width f32 layers (the dense one and one MoE layer,
    capacity past any drop).
 11. The rest of the zoo at full width, one model at a time, each cut to its
@@ -88,9 +96,10 @@
    2048-row ring), rwkv6, paligemma (256 prefix embeddings) and whisper
    (2 encoder layers over 1500 frames, cross-attention).  Every
    decoder-only family (qwen3 and deepseek too), cut to 2-3 layers in f32,
-   is served by a captured engine and by one running its step body op by
-   op: 4 prompts through 2 slots, retired and refilled mid-stream, to the
-   same greedy tokens.  Then qwen3-1.7b at
+   is served by a captured engine (its decode graph and a prefill graph at
+   each of the widths 64, 128 and 504, one replayed after later captures)
+   and by one running both bodies op by op: 5 prompts through 2 slots,
+   retired and refilled mid-stream, to the same greedy tokens.  Then qwen3-1.7b at
    full depth in bf16 with the int8 KV cache against the bf16 cache: cosine
    > 0.999 at each of 8 decode steps, and the card's int8 codes and
    scales equal the CPU's bit for bit.
@@ -144,6 +153,7 @@ runs phase 13b alone on a (2, 2) NCCL mesh of 4 cards, one rank a card
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import queue
@@ -193,10 +203,16 @@ ZOO = (("phi3-mini-3.8b", 2, (300,)), ("stablelm-12b", 2, (300,)), ("qwen1.5-110
        ("rwkv6-1.6b", 2, (300,)), ("paligemma-3b", 2, (300,)), ("whisper-medium", 2, (300,)))
 # qwen3's int8 KV cache against its bf16 cache: batch, prompt, decode steps
 INT8_RUN = (4, 512, 8)
-# each family's captured engine against its eager step body (phase 11):
-# prompt lengths, new tokens for each (unequal: slots retire mid-stream),
-# the cache's length
-ENGINE_PROMPTS, ENGINE_MAX_NEW, ENGINE_MAX_LEN = (40, 300, 120, 75), (3, 8, 5, 6), 512
+# each family's captured engine against its eager bodies (phase 11): prompt
+# lengths, new tokens for each (unequal: slots retire mid-stream), the
+# cache's length, and the padded widths these give: 64, 504 (300 tokens
+# with 8 new: the bucket 512 clipped to the 504 rows the decode room
+# leaves), 128, 128, then 64 again, replayed after later captures
+ENGINE_PROMPTS, ENGINE_MAX_NEW, ENGINE_MAX_LEN = (40, 300, 120, 75, 50), (3, 8, 5, 6, 4), 512
+ENGINE_WIDTHS = (64, 128, 504)
+# the admission's padded widths timed in phase 6 (qwen3) and, the last,
+# in phase 10 (deepseek)
+PREFILL_WIDTHS = (512, 1024)
 # decode_attention at each family's full-width decode shape (phase 3, bf16):
 # (arch, H, KV, dh, cache rows); recurrentgemma's cache is its ring
 ATTN_SHAPES = (("phi3-mini-3.8b", 32, 32, 96, 2048), ("stablelm-12b", 32, 8, 160, 2048),
@@ -721,8 +737,10 @@ def serve_main_path(torch, dev, index, embedder, arch=ARCH,
         names = [WORKFLOW_NAMES[i % len(WORKFLOW_NAMES)] for i in range(N_REQUESTS)]
         generated = []
         # host-clock seconds in decode steps (each ends in a sync) and in
-        # prefills (each ends in reading its first token)
-        spent = {"steps": 0, "decode": 0.0, "prefills": 0, "prefill": 0.0}
+        # prefills (each ends in reading its first token), the prefills
+        # split by what they ran: a width's first on the card runs the body
+        # and captures it, the later ones replay (on the CPU all run eagerly)
+        spent = {"steps": 0, "decode": 0.0, "captured": [], "replayed": [], "eager": []}
         orig_step, orig_add = engine.step, engine.add_sequence
 
         def step():
@@ -734,15 +752,18 @@ def serve_main_path(torch, dev, index, embedder, arch=ARCH,
             return out
 
         def add_sequence(*args, **kwargs):
+            graphs = len(prefill_graphs(engine))
             t = time.perf_counter()
             sid = orig_add(*args, **kwargs)
-            spent["prefill"] += time.perf_counter() - t
-            spent["prefills"] += 1
+            kind = ("eager" if not engine._capture_prefills else
+                    "captured" if len(prefill_graphs(engine)) > graphs else "replayed")
+            spent[kind].append(time.perf_counter() - t)
             return sid
 
         engine.step, engine.add_sequence = step, add_sequence
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
+            reserved0 = torch.cuda.memory_reserved()  # before the first prefill capture
         ivf_scan.launches = 0
         decode_attention.launches = 0
         t0 = time.perf_counter()
@@ -762,10 +783,20 @@ def serve_main_path(torch, dev, index, embedder, arch=ARCH,
         f"cache_misses={st['misses']} uploads={st['uploads']}")
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else "not measured"
     log(f"  launches: {launches}  max_memory_allocated={peak} bytes")
+    prefill = {k: sum(spent[k]) for k in ("captured", "replayed", "eager")}
+    split = ", ".join(f"{len(spent[k])} {k} {prefill[k]:.3f}s"
+                      f"{f' ({1e3 * prefill[k] / len(spent[k]):.2f} ms each)' if spent[k] else ''}"
+                      for k in ("captured", "replayed", "eager"))
     log(f"  host clock: {spent['steps']} decode steps (each a replay of the captured graph) "
         f"{spent['decode']:.3f}s ({1e3 * spent['decode'] / max(spent['steps'], 1):.2f} ms a "
-        f"step), {spent['prefills']} prefills {spent['prefill']:.3f}s, the rest (retrieval, "
-        f"scheduling) {wall - spent['decode'] - spent['prefill']:.3f}s of {wall:.3f}s")
+        f"step); prefills: {split} (widths {sorted(engine._prefills)}); the rest (retrieval, "
+        f"scheduling) {wall - spent['decode'] - sum(prefill.values()):.3f}s of {wall:.3f}s")
+    if dev.type == "cuda":
+        log(f"  prefill graphs' pool: {pool_bytes(torch, engine._prefill_pool)} bytes; "
+            f"memory_reserved {reserved0} bytes before the first prefill capture, "
+            f"{torch.cuda.memory_reserved()} after the last")
+        need(len(spent["captured"]) <= 2 and not spent["eager"],
+             f"{len(spent['captured'])} of the prefills ran eagerly (at most 2, one a width)")
     need(m.finished == N_REQUESTS, f"finished {m.finished} of {N_REQUESTS} requests")
     for name in kernels:
         need(launches[name] > 0, f"the main path launched {name} no time")
@@ -896,6 +927,7 @@ def serve_moe_path(torch, dev, index, embedder):
                                                      kernels=("ivf_scan",))
     if dev.type == "cuda":
         time_decode_step(torch, dev, engine, MOE_ARCH, eager_iters=3)
+        time_prefill(torch, dev, engine, MOE_ARCH, PREFILL_WIDTHS[-1:], eager_iters=2)
         log(f"  {MOE_ARCH} peak max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     need(check_retrieval_against_host(torch, index, hybrid, embedder) > 0,
          "phase 10: no probed cluster was resident for the retrieval check")
@@ -910,8 +942,9 @@ def serve_moe_path(torch, dev, index, embedder):
 def zoo_checks(torch, dev):
     """Phase 11: each family of ZOO at full width, cut to its first segment
     period (f32), decode against prefill; every decoder-only family (qwen3
-    and deepseek too, cut to 2 layers) served by a captured engine and by
-    its step body run op by op, to the same greedy tokens; then qwen3-1.7b
+    and deepseek too, cut to 2 layers) served by a captured engine (decode
+    and prefill graphs) and by its bodies run op by op, to the same greedy
+    tokens; then qwen3-1.7b
     at full depth in bf16 with the int8 KV cache against the bf16 cache."""
     from repro_torch.configs import get_config
 
@@ -947,8 +980,10 @@ def serve_stream(engine, prompts):
 
 def captured_vs_eager(torch, dev, cfg, seed, what):
     """Two engines over one set of weights serve the same prompts through 2
-    slots: one replays its captured graph, the other (its graph dropped)
-    runs the same step body op by op.  The greedy tokens must be equal."""
+    slots: one replays its captured graphs (the decode step's and one
+    prefill graph a padded width, 504 among the widths, replayed out of
+    capture order), the other (both graphs dropped) runs the same bodies op
+    by op.  The greedy tokens must be equal."""
     import numpy as np
 
     from repro_torch.models import lm
@@ -965,15 +1000,18 @@ def captured_vs_eager(torch, dev, cfg, seed, what):
                                   device=dev)
         need(engine._graph is not None, f"{what}: the engine did not capture its decode step")
         if not captured:
-            engine._graph = None  # the step body, op by op
+            engine._graph, engine._capture_prefills = None, False  # the bodies, op by op
         runs.append(serve_stream(engine, prompts))
+        if captured:
+            widths = prefill_graphs(engine)
         del engine
     (got, steps), (want, _) = runs
     same = got == want
-    log(f"  {what} ({cfg.n_layers} layers {cfg.dtype}): captured engine vs its eager step body, "
-        f"{len(prompts)} prompts through 2 slots, {steps} steps: greedy tokens "
-        f"{'equal' if same else 'DIFFER'} ({sum(map(len, got))} tokens)")
-    need(same, f"{what}: the captured engine's greedy tokens differ from the eager body's")
+    log(f"  {what} ({cfg.n_layers} layers {cfg.dtype}): captured engine (prefill graphs at "
+        f"widths {widths}) vs its eager bodies, {len(prompts)} prompts through 2 slots, {steps} "
+        f"steps: greedy tokens {'equal' if same else 'DIFFER'} ({sum(map(len, got))} tokens)")
+    need(widths == list(ENGINE_WIDTHS), f"{what}: prefill graphs at widths {widths}")
+    need(same, f"{what}: the captured engine's greedy tokens differ from the eager bodies'")
 
 
 def int8_cosine(torch, dev, cfg, B, S, steps):
@@ -2349,6 +2387,17 @@ def profile_once(torch, fn):
     return len(spans), busy / 1e3, wall, [(n[:60], round(us / 1e3, 4)) for n, us in top]
 
 
+def log_profile(torch, what, fn):
+    """Print ``profile_once`` of ``fn``: device ops, busy and wall time."""
+    n_ops, busy, wall, top = profile_once(torch, fn)
+    if n_ops == 0:
+        log(f"  profiler, one {what}: no device activity traced (not measured); "
+            f"wall {wall:.3f} ms")
+        return
+    log(f"  profiler, one {what}: {n_ops} device ops, device busy {busy:.3f} ms of "
+        f"{wall:.3f} ms wall ({100 * busy / wall:.1f}%); costliest {top}")
+
+
 def time_decode_step(torch, dev, engine, what, eager_iters=5):
     """The engine's decode step at its current state, eager (its step body
     op by op) and replayed (the captured graph), with CUDA events, beside
@@ -2364,14 +2413,85 @@ def time_decode_step(torch, dev, engine, what, eager_iters=5):
         f"{replay:.3f} ms ({eager / replay:.1f}x); byte floor {floor_ms:.3f} ms ({n_bytes} bytes "
         f"at {HBM_BYTES_PER_S / 1e12} TB/s; the replay at {100 * floor_ms / replay:.1f}% of it)")
     for name, fn in (("eager", engine._decode), ("replay", engine._graph.replay)):
-        n_ops, busy, wall, top = profile_once(torch, fn)
-        if n_ops == 0:
-            log(f"  profiler, one {name} step: no device activity traced (not measured); "
-                f"wall {wall:.3f} ms")
-            continue
-        log(f"  profiler, one {name} step: {n_ops} device ops, device busy {busy:.3f} ms of "
-            f"{wall:.3f} ms wall ({100 * busy / wall:.1f}%); costliest {top}")
+        log_profile(torch, f"{name} step", fn)
     return eager, replay
+
+
+def prefill_graphs(engine) -> list:
+    """The padded widths whose admission graph the engine has captured."""
+    return sorted(w for w, b in engine._prefills.items() if b.graph is not None)
+
+
+def pool_bytes(torch, pool) -> int:
+    """Bytes of the device memory segments of the CUDA-graph memory pool
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def prefill_floor(cfg, engine, width):
+    """(bytes, bf16 FLOP, f32 FLOP, floor ms, bound by) of one admission at
+    ``width``.  Bytes: every parameter read once and one slot's state
+    written once.  bf16: 2 x width x the parameters a token touches (MoE:
+    its top-k and shared experts; the embedding is a lookup), plus the
+    head for the last token.  f32: the blocked attention's score and value
+    products over the query-chunk x key blocks it computes (masked entries
+    included: 4 x heads x head dim x queries x keys a layer; MLA at its
+    padded 192-wide heads).  The floor is the larger of the bytes at the
+    HBM rate and the two FLOP counts at their peaks, added."""
+    from repro_torch.training.tree import leaves
+
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(engine.params))
+    n_bytes += sum(t[:, :1].numel() * t.element_size() for t in leaves(engine.state["segments"]))
+    embed = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    bf16 = 2 * width * (cfg.active_param_count() - embed) + 2 * cfg.d_model * cfg.vocab_size
+    f32 = 0
+    for seg in cfg.segments:
+        if seg.mixer not in ("attn", "local_attn", "mla"):
+            continue
+        dh = cfg.nope_head_dim + cfg.rope_head_dim if seg.mixer == "mla" else cfg.d_head
+        window = cfg.local_window if seg.mixer == "local_attn" else 0
+        qc, pairs = min(cfg.attn_q_chunk, width), 0
+        for q0 in range(0, width, qc):
+            q1 = min(q0 + qc, width)
+            pairs += (q1 - q0) * (q1 - (max(0, q0 - window + 1) if window else 0))
+        f32 += seg.repeat * 4 * cfg.n_heads * dh * pairs
+    ops_ms = (bf16 / BF16_FLOPS + f32 / F32_FLOPS) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return n_bytes, bf16, f32, max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def time_prefill(torch, dev, engine, what, widths, eager_iters=3):
+    """One admission of a seeded prompt at each padded width into a free
+    slot of the engine's slab: the body op by op (eager) and the width's
+    graph replayed, with CUDA events, beside the width's floor; one of each
+    under the profiler; then the prefill graphs' pool."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 20)
+    slot = engine.free_slots[-1]
+    for width in widths:
+        t0 = time.perf_counter()
+        first = engine._admit(rng.integers(1, engine.cfg.vocab_size, size=width), slot)
+        buf = engine._prefills[width]
+        need(buf.graph is not None and 0 <= first < engine.cfg.vocab_size,
+             f"{what}: no prefill graph at width {width}")
+        admit_s = time.perf_counter() - t0
+        body = functools.partial(engine._prefill, buf)
+        eager = time_ms(torch, dev, body, iters=eager_iters, warmup=1)
+        replay = time_ms(torch, dev, buf.graph.replay, iters=10)
+        n_bytes, bf16, f32, floor_ms, by = prefill_floor(engine.cfg, engine, width)
+        log(f"  {what} prefill + insert at width {width} ({engine.cfg.n_layers} layers, slot "
+            f"{slot} of {engine.max_batch}, max_len {engine.max_len}; first admission "
+            f"{admit_s:.3f}s): eager {eager:.3f} ms, replayed graph {replay:.3f} ms "
+            f"({eager / replay:.1f}x); floor {floor_ms:.3f} ms ({by}: {bf16} bf16 FLOP at "
+            f"{BF16_FLOPS / 1e12:.0f} TFLOP/s + {f32} f32 FLOP at {F32_FLOPS / 1e12:.0f} "
+            f"TFLOP/s, {n_bytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s; the replay at "
+            f"{100 * floor_ms / replay:.1f}% of it)")
+        for name, fn in (("eager", body), ("replay", buf.graph.replay)):
+            log_profile(torch, f"{name} prefill at width {width}", fn)
+    log(f"  {what} prefill graphs' pool: {pool_bytes(torch, engine._prefill_pool)} bytes for "
+        f"widths {prefill_graphs(engine)}; memory_reserved {torch.cuda.memory_reserved()} bytes")
 
 
 def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
@@ -2443,6 +2563,7 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
     log(f"  its {n_layers} decode_attention launches: {n_layers * attn_ms:.3f} ms, "
         f"{100 * n_layers * attn_ms / eager_ms:.1f}% of the eager step, "
         f"{100 * n_layers * attn_ms / replay_ms:.1f}% of the replay")
+    time_prefill(torch, dev, engine, ARCH, PREFILL_WIDTHS)
 
     # beside the wrapper's chunk, the network's other choices: at the
     # sharded input (16 rows: one 64-key chunk holds a row) K'-key chunks

@@ -12,25 +12,43 @@ This engine is what ``RealBackend`` binds to.  ``step()`` ends in a
 ``RealBackend.gen_duration`` measures around it is the decode's, not the
 launches'.
 
-The step body (``_decode``) is a function of tensors that never move: the
-slab's leaves, ``cache_len``, the last and next tokens and the active-slot
-mask, each written in place.  On CUDA the engine captures that body once,
-at construction, as one CUDA graph, and each ``step()`` copies the mask in
-and replays it: one launch a step, the port's form of the JAX engine's
-``jax.jit(_decode_impl, donate_argnums=(1,))``.  The capture is preceded
-by one eager warm-up step on the capture's stream (it builds the kernels,
-allocates their counters and cuBLAS's workspace) and followed by a reset
-of every buffer and of the sampler's generator, so a fresh engine starts
-from zeros and ``seed``.  A capture or replay that fails raises; the
-engine never carries on eagerly on CUDA.  Parameters or state that hold
-a DTensor (the mesh paths: ``lm._traversal``, ``layers._sharded_decode``)
-are not captured: DTensor's sharding propagation runs on the host at each
-op, so the engine runs the same body eagerly for them.  On the CPU the
-body runs eagerly.
+Two bodies do the work, each a function of tensors that never move.  The
+step body (``_decode``) reads and writes the slab's leaves, ``cache_len``,
+the last and next tokens and the active-slot mask.  The admission body
+(``_prefill``) prefills one padded prompt from a fixed token buffer and
+writes its state into the slab at a slot held in a one-element tensor,
+every leaf with ``index_copy_``, its length into ``cache_len`` and its
+greedy first token into a fixed buffer and into the last tokens.  Each
+padded width ``pad_to`` has its own buffers: ``pad_to`` is the prompt's
+bucket (32 ... 2048) clipped to what the cache keeps after the decode
+room (``keep``, from ``max_new``), so a width can be any number up to
+``max_len`` (504 for a 300-token prompt with 8 new tokens in a 512-row
+cache), as the JAX engine's jitted prefill is traced once for each shape.
+
+On CUDA each body becomes a CUDA graph, captured after one eager warm-up
+run on the capture's stream (it builds cuBLAS's workspace and the
+kernels' counters): the step once, at construction, followed by a reset of
+every buffer and of the sampler's generator, so a fresh engine starts from
+zeros and ``seed``; the admission once for each width, at that width's
+first admission, whose warm-up is the real prefill (nothing is reset).
+Each ``step()`` copies the mask in and replays its graph; each later
+admission at a width copies the prompt and the slot in from pinned host
+memory and replays that width's graph.  These are the port's form of the
+JAX engine's ``jax.jit(_decode_impl, donate_argnums=(1,))`` and of its
+jitted ``_prefill`` with the donated ``_insert``.  The prefill graphs
+share one memory pool: none of their results lives in it (the slab and
+the buffers are allocated outside every graph) and they never run at
+once.  A capture or replay that fails raises; the engine never carries
+on eagerly on CUDA.  Parameters or state that hold a DTensor (the mesh
+paths: ``lm._traversal``, ``layers._sharded_decode``) are not captured:
+DTensor's sharding propagation runs on the host at each op, so the
+engine runs the same bodies eagerly for them.  On the CPU the bodies run
+eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Optional
 
 import numpy as np
@@ -60,6 +78,21 @@ def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
         if n <= b:
             return b
     return -(-n // 2048) * 2048
+
+
+@dataclasses.dataclass
+class _PrefillBuffers:
+    """One padded width's admission buffers at fixed addresses: the left-
+    padded prompt, the slot and the first token on the device (the width's
+    graph's inputs and output), the prompt and the slot in (pinned) host
+    memory, from where each admission copies them in, and the graph once
+    captured."""
+    tokens: torch.Tensor  # (1, pad_to) int64
+    slot: torch.Tensor  # (1,) int64
+    first: torch.Tensor  # (1,) int32
+    tokens_host: torch.Tensor
+    slot_host: torch.Tensor
+    graph: Optional[torch.cuda.CUDAGraph] = None
 
 
 class GenerationEngine:
@@ -97,8 +130,18 @@ class GenerationEngine:
         self._active = self._active_host.numpy()
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_launches = 0  # decode_attention launches a replay makes
+        # the admission buffers of each padded width, with its graph once
+        # captured; all prefill graphs allocate from one pool of their own
+        self._prefills: dict[int, _PrefillBuffers] = {}
+        self._capture_prefills = False
         if dev.type == "cuda" and not _holds_dtensor([params, self.state]):
-            self._capture(seed)
+            self._stream = torch.cuda.Stream(dev)  # every capture's, so one cuBLAS workspace
+            self._prefill_pool = torch.cuda.graph_pool_handle()
+            self._graph, self._graph_launches = self._capture(self._decode, self._gen)
+            for t in self._buffers():
+                t.zero_()
+            self._gen.manual_seed(seed)
+            self._capture_prefills = True
 
     # ------------------------------------------------------------- internals
     def _buffers(self) -> list[torch.Tensor]:
@@ -117,46 +160,86 @@ class GenerationEngine:
         self.state["cache_len"].add_(self._active_dev)
         self._last_tokens.copy_(self._next_tokens)
 
-    def _capture(self, seed: int) -> None:
-        """Warm up, capture ``_decode`` as one CUDA graph, then reset every
-        buffer and the generator to their initial values."""
-        dev = self.device
-        side = torch.cuda.Stream(dev)
+    def _prefill(self, buf: _PrefillBuffers) -> None:
+        """The admission body: prefill ``buf.tokens`` and write the one-
+        sequence state into the slab at slot ``buf.slot``: every leaf (K/V
+        rows, int8 scales, latents, recurrent states) along the slot axis,
+        the length into ``cache_len``, the greedy first token (the first
+        maximal index) into ``buf.first`` and ``_last_tokens``.  The slot
+        is a tensor, so no Python number of it reaches a kernel, and
+        nothing here waits for the device."""
+        logits, one = lm.prefill(self.params, self.cfg, buf.tokens, max_len=self.max_len)
+        self.state["cache_len"].index_copy_(0, buf.slot, one["cache_len"])
+        for slab, new in zip(leaves(self.state["segments"]), leaves(one["segments"]),
+                             strict=True):
+            slab.index_copy_(1, buf.slot, new.to(slab.dtype))  # (L, B, ...) <- (L, 1, ...)
+        buf.first.copy_(torch.argmax(logits, -1))
+        self._last_tokens.index_copy_(0, buf.slot, buf.first)
+
+    def _prefill_buffers(self, pad_to: int) -> _PrefillBuffers:
+        buf = self._prefills.get(pad_to)
+        if buf is None:
+            dev, pin = self.device, self.device.type == "cuda"
+            buf = _PrefillBuffers(
+                tokens=torch.zeros((1, pad_to), dtype=torch.int64, device=dev),
+                slot=torch.zeros((1,), dtype=torch.int64, device=dev),
+                first=torch.zeros((1,), dtype=torch.int32, device=dev),
+                tokens_host=torch.zeros((1, pad_to), dtype=torch.int64, pin_memory=pin),
+                slot_host=torch.zeros((1,), dtype=torch.int64, pin_memory=pin))
+            self._prefills[pad_to] = buf
+        return buf
+
+    def _capture(self, body, generator=None, pool=None):
+        """Run ``body`` once eagerly on the capture stream (the warm-up: its
+        results are real), then capture it as one CUDA graph.  Returns the
+        graph and the ``decode_attention`` launches it recorded, which the
+        caller adds at each replay (the capture ran nothing)."""
+        dev, side = self.device, self._stream
         with torch.cuda.device(dev):
             # the kernels' counters allow no concurrent launches: the side
             # stream starts after all work queued on the current one
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                self._decode()
+                body()
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            if self.sampler.temperature > 0.0:
-                graph.register_generator_state(self._gen)  # each replay draws anew
+            if generator is not None and self.sampler.temperature > 0.0:
+                graph.register_generator_state(generator)  # each replay draws anew
             n0 = decode_attention.launches
-            with torch.cuda.graph(graph, stream=side):
-                self._decode()
-            # recorded, not run: each replay adds them (step())
-            self._graph_launches = decode_attention.launches - n0
+            # a prefill is captured mid-serving: other threads (the wall-
+            # clock ingress's) may call into CUDA, and a garbage collection
+            # could destroy another engine's graph, which invalidates any
+            # capture (torch.cuda.graph collects once before it begins)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=side,
+                                      capture_error_mode="thread_local"):
+                    body()
+            finally:
+                if collecting:
+                    gc.enable()
+            launches = decode_attention.launches - n0
             decode_attention.launches = n0
-            for t in self._buffers():
-                t.zero_()
-        self._gen.manual_seed(seed)
-        self._graph = graph
+        return graph, launches
 
-    def _insert(self, one_state: dict, slot: int) -> None:
-        """Copy a one-sequence prefill state into slab slot ``slot``: every
-        leaf (K/V rows, int8 scales, latents, recurrent states, enc_kv)."""
-        self.state["cache_len"][slot] = one_state["cache_len"][0]
-
-        def ins(slab, one):
-            if isinstance(slab, dict):
-                for name in slab:
-                    ins(slab[name], one[name])
-            else:
-                slab[:, slot] = one[:, 0]  # (L, B, ...) <- (L, 1, ...)
-
-        for slab_seg, one_seg in zip(self.state["segments"], one_state["segments"]):
-            ins(slab_seg, one_seg)
+    def _admit(self, tokens: np.ndarray, slot: int) -> int:
+        """Prefill the left-padded prompt ``tokens`` (pad_to,) into slab slot
+        ``slot`` through its width's buffers: replay the width's graph, or
+        at its first admission on CUDA run the body and capture it, or (CPU,
+        DTensors) run the body.  Returns the first token."""
+        buf = self._prefill_buffers(len(tokens))
+        buf.tokens_host.numpy()[0] = tokens
+        buf.slot_host[0] = slot
+        buf.tokens.copy_(buf.tokens_host, non_blocking=True)
+        buf.slot.copy_(buf.slot_host, non_blocking=True)
+        if buf.graph is not None:
+            buf.graph.replay()  # prefill launches no decode_attention
+        elif self._capture_prefills:
+            buf.graph, _ = self._capture(lambda: self._prefill(buf), pool=self._prefill_pool)
+        else:
+            self._prefill(buf)
+        return int(buf.first.cpu()[0])  # waits for the device, as JAX's int(argmax)
 
     # ------------------------------------------------------------------ API
     def can_admit(self) -> bool:
@@ -181,20 +264,15 @@ class GenerationEngine:
         n = len(prompt_tokens)
         pad_to = min(_bucket(n), keep)
         max_new = min(max_new, self.max_len - pad_to)
-        toks = np.zeros((1, pad_to), np.int64)
-        toks[0, pad_to - n:] = prompt_tokens  # left-pad (simplest causal-safe)
-        logits, st1 = lm.prefill(self.params, self.cfg,
-                                 torch.from_numpy(toks).to(self.device),
-                                 max_len=self.max_len)
-        self._insert(st1, slot)
+        toks = np.zeros((pad_to,), np.int64)
+        toks[pad_to - n:] = prompt_tokens  # left-pad (simplest causal-safe)
         # note: left-padding slightly pollutes the prefix; acceptable for the
         # integration path (real deployment uses paged prefill)
-        first = int(torch.argmax(logits[0]))
+        first = self._admit(toks, slot)
         sid = self._next_id
         self._next_id += 1
         self.seqs[sid] = Sequence(sid, slot, n, max_new, [first])
         self._active[slot] = True
-        self._last_tokens[slot] = first
         return sid
 
     def step(self) -> dict[int, int]:

@@ -111,7 +111,8 @@ def test_seeded_temperature_stream_repeats():
 
 def test_dtensor_engine_is_not_captured():
     """Parameters placed on a mesh (DTensors) keep the engine eager on any
-    device: DTensor's sharding propagation runs on the host at each op."""
+    device, its step and its admissions: DTensor's sharding propagation
+    runs on the host at each op."""
     from repro_torch.distributed.sharding import param_shardings
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -125,6 +126,7 @@ def test_dtensor_engine_is_not_captured():
         assert engine_mod._holds_dtensor([dparams, eng.state])
         assert not engine_mod._holds_dtensor([params, eng.state])
         assert eng._graph is None and eng.step() == {}
+        assert not eng._capture_prefills and eng._prefills == {}  # no prefill graph either
     finally:
         if own_group:
             dist.destroy_process_group()

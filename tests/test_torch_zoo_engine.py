@@ -1,7 +1,7 @@
 """The port's generation engine and launcher over every decoder-only
 family: greedy streams identical to the JAX ``GenerationEngine`` (as
 ``test_torch_model.py::test_greedy_streams_identical`` checks qwen3), with
-slots reused so that ``_insert`` copies every kind of state, and the
+slots reused so that the admission body copies every kind of state, and the
 launcher serving each family on the CPU."""
 import numpy as np
 import pytest
