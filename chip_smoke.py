@@ -18,14 +18,21 @@
    also at forced chunks of its sorting network, k past its register path
    up to its limit, and rows of 20,000 candidates.  ``decode_attention``
    also in bf16 at every other family's full-width decode shape (dh 96,
-   160, 64, 128 and 256, recurrentgemma's over its 2048-row ring).
+   160, 64, 128 and 256, recurrentgemma's over its 2048-row ring).  The
+   model body's fused kernels (``norm``, ``qk_rope``, ``glu``) at the main
+   path's decode and prefill shapes and at edge cases (the zoo's widths,
+   d_head 64 / 96 / 128 / 160 / 256, odd row counts, f32, a strided row, a
+   ring slot, position 0 and a position past the cache's end): the norms
+   within 1 ulp (bf16), the residual sums, RoPE, the cache writes and the
+   activations bit for bit, the share of differing elements printed.
 4. The main path: ``Server(mode="hedra", nprobe=32)`` over ``RealBackend``,
    with qwen3-1.7b at full width and depth (28 layers, bf16, seeded random
    weights) and the hybrid retrieval engine (512 device-resident clusters),
    serves 8 requests of the paper's five workflows.  The engine's decode
    step is one CUDA graph, captured when the engine is built and replayed
-   at each step; each replay adds its 28 ``decode_attention`` launches to
-   the kernel's count.  Each admission (prefill + slot insert) is a CUDA
+   at each step; each replay adds the launches it recorded to each
+   kernel's count (28 ``decode_attention``, 57 ``norm``, 28 ``qk_rope``,
+   28 ``glu``; a prefill graph's norm, qk_rope and glu likewise).  Each admission (prefill + slot insert) is a CUDA
    graph of its padded width, captured at the width's first admission and
    replayed at the later ones: at most 2 of the 8 prefills run eagerly,
    and the host clock splits the prefills that captured from those that
@@ -75,7 +82,17 @@
    costliest kernels); qwen3's admission at padded widths 512 and 1024
    into phase 4's slab, eager and replayed, beside each width's floor (its
    bf16 GEMMs and f32 attention at their peaks, or its bytes), one of each
-   under the profiler, and the prefill graphs' pool; ``ivf_scan`` also at a fixed shape made from SEED
+   under the profiler, and the prefill graphs' pool; the replays' device
+   time grouped by kernel name (top 15, with counts); the same step and
+   admissions through a twin engine captured under the plain-on-card switch
+   (the plain chains: the model body before the fused kernels); the fused
+   kernels at the decode and prefill shapes beside their byte bounds, their
+   plain versions, ``F.rms_norm`` for the norm and one ``torch.sum``; then
+   qwen3-1.7b at full width and depth, 8 prompts x 32 tokens through the
+   captured engine with the fused kernels and under the switch: the greedy
+   streams must be equal, or differ first where the plain run's top-2 logit
+   margin is below the teacher-forced logit difference (a near-tie);
+   ``ivf_scan`` also at a fixed shape made from SEED
    (17 real clusters, one real query a group, k 5), which the main path's varying
    G does not give; ``topk_merge`` also at pod scale (Q 8192, k 32, m 96)
    on random lists and on sorted ones as ``make_sharded_search`` gives
@@ -97,9 +114,11 @@
    (2 encoder layers over 1500 frames, cross-attention).  Every
    decoder-only family (qwen3 and deepseek too), cut to 2-3 layers in f32,
    is served by a captured engine (its decode graph and a prefill graph at
-   each of the widths 64, 128 and 504, one replayed after later captures)
-   and by one running both bodies op by op: 5 prompts through 2 slots,
-   retired and refilled mid-stream, to the same greedy tokens.  Then qwen3-1.7b at
+   each of the widths 64, 128 and 504, one replayed after later captures),
+   by one running both bodies op by op and by one captured under the
+   plain-on-card switch (graphs of the plain chains, not the fused
+   kernels): 5 prompts through 2 slots, retired and refilled mid-stream,
+   to the same greedy tokens.  Then qwen3-1.7b at
    full depth in bf16 with the int8 KV cache against the bf16 cache: cosine
    > 0.999 at each of 8 decode steps, and the card's int8 codes and
    scales equal the CPU's bit for bit.
@@ -119,8 +138,9 @@
    on the card, and the train launcher as a subprocess, run and then
    resumed from its step-3 checkpoint. No CUDA kernel of the port is on the
    training path (its attention is the plain blocked attention, as the JAX
-   package's is jnp): each kernel's launches over phase 12 are read and
-   must be 0.
+   package's is jnp, and train mode runs the plain chains: the fused
+   kernels have no backward): each kernel's launches over phase 12 are
+   read and must be 0.
 13. The mesh: (a) ``launch.dryrun`` traces one step of qwen3-1.7b train_4k
    and decode_32k and deepseek-v2-lite-16b train_4k on the production mesh
    (data=32, model=8; a fake group of 256 ranks and fake tensors, each cell
@@ -286,6 +306,17 @@ ATTN_LSE = dict(rtol=1e-5, atol=1e-4)
 # rounding noise (the sums over ranks run in another order) moves by up to
 # lr either way.
 MESH_LOSS_RTOL, MESH_PARAM_ATOL, MESH_PARAM_FRAC = 1e-5, 1e-5, 1e-4
+# the fused norm (kernels.norm) in f32: the kernel sums a row in another
+# order than ATen's reduction, so outputs differ in the last f32 bits;
+# outputs near 0 (LayerNorm near a row's mean, a bias cancelling the scaled
+# value) carry a few f32 ulps of the O(1) terms, hence the atol.  In bf16
+# the norm is held to 1 ulp, except a LayerNorm output that is such a
+# difference of nearly equal terms: one ulp of its own small magnitude is
+# finer than those f32 ulps, so it is held to NORM_BF16_CANCEL absolute.
+# RoPE, the cache writes, the residual sums and the activations are held
+# bit for bit (phase 3).
+NORM_F32 = dict(rtol=1e-6, atol=1e-6)
+NORM_BF16_CANCEL = 2.0**-16
 # decode (kernel) against prefill (plain) through 2 full-width f32 layers
 # and the 151936-wide head: summation order over d_model 2048 and d_ff 6144.
 MODEL_F32 = dict(rtol=1e-3, atol=1e-3)
@@ -659,6 +690,393 @@ def merge_cases(torch, merge_ops, merge_ref, dev):
 
 
 # ---------------------------------------------------------------------------
+# the fused kernels of the model body (norm, qk_rope, glu)
+# ---------------------------------------------------------------------------
+
+
+def bits_equal(torch, a, b) -> bool:
+    view = {8: torch.int64, 4: torch.int32, 2: torch.int16}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+def bf16_steps(torch, a, b):
+    """Per element, how many bf16 values apart two bf16 tensors lie."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def check_norm_out(torch, got, want, what, layernorm=False):
+    """A norm's output against the plain version's: within 1 ulp in bf16
+    (a LayerNorm output past 1 ulp within NORM_BF16_CANCEL; NORM_F32 in
+    f32); prints the largest error and the share of elements that differ.
+    Returns the largest |difference|."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if got.numel() else 0.0
+    share = float((got != want).float().mean()) if got.numel() else 0.0
+    if got.dtype == torch.bfloat16:
+        steps = bf16_steps(torch, got, want)
+        over = steps > 1
+        n_over = int(over.sum())
+        ok = n_over == 0 or (layernorm and bool((diff[over] <= NORM_BF16_CANCEL).all()))
+        tol = f"{int(steps.max()) if got.numel() else 0} ulp (<= 1"
+        tol += f"; {n_over} cancelling outputs within {NORM_BF16_CANCEL:.2e})" if layernorm else ")"
+    else:
+        ok, tol = bool(torch.allclose(got, want, **NORM_F32)), f"rtol {NORM_F32['rtol']}, atol {NORM_F32['atol']}"
+    log(f"  {what}: max_abs_err={err:.3e}, {tol}, {100 * share:.3f}% of elements differ "
+        f"{'ok' if ok else 'FAIL'}")
+    need(ok, f"{what}: the kernel is not within its tolerance of the plain version")
+    return err
+
+
+def rand(torch, gen, shape, dtype, dev, scale=1.0, shift=0.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+
+def norm_cases(torch, dev):
+    """kernels.norm against its plain version: RMSNorm and LayerNorm, with
+    and without the residual add, at the main path's shapes (decode 8 x 2048,
+    prefill 1024 x 2048, bf16), the zoo's widths, odd row counts, f32, a
+    strided row (MLA's latent) and f32 parameters under bf16 activations;
+    the residual sum bit for bit; two calls on one input bit for bit."""
+    from repro_torch.kernels.norm import norm, norm_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 30)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(8, 2048, bf, "rmsnorm"), (1024, 2048, bf, "rmsnorm"), (7, 3072, bf, "rmsnorm"),
+             (1, 8192, bf, "rmsnorm"), (9, 5120, bf, "layernorm"), (1023, 2048, bf, "layernorm"),
+             (8, 2048, f32, "rmsnorm"), (5, 1024, f32, "layernorm"), (3, 64, bf, "rmsnorm")]
+    errs = []
+    for rows, d, dt, kind in cases:
+        x, delta = rand(torch, gen, (rows, d), dt, dev), rand(torch, gen, (rows, d), dt, dev)
+        scale = rand(torch, gen, (d,), dt, dev, 0.1, 1.0)
+        bias = rand(torch, gen, (d,), dt, dev, 0.1) if kind == "layernorm" else None
+        for residual in (False, True):
+            kw = dict(kind=kind, eps=1e-6, delta=delta if residual else None)
+            got, want = norm(x, scale, bias, **kw), norm_ref(x, scale, bias, **kw)
+            torch.cuda.synchronize()
+            what = f"norm {kind} {rows}x{d} {str(dt)[6:]}{' + residual' if residual else ''}"
+            if residual:
+                need(bits_equal(torch, got[0], want[0]), f"{what}: the residual sum differs")
+                got, want = got[1], want[1]
+            errs.append(check_norm_out(torch, got, want, what, kind == "layernorm"))
+    # MLA's latent: a slice of a wider product, rows 576 apart; f32 scale
+    wide = rand(torch, gen, (4, 33, 576), bf, dev)
+    scale = rand(torch, gen, (512,), f32, dev, 0.1, 1.0)
+    errs.append(check_norm_out(torch, norm(wide[..., :512], scale, eps=1e-6),
+                               norm_ref(wide[..., :512], scale, eps=1e-6),
+                               "norm rmsnorm strided 4x33x512 of 576 bf16, f32 scale"))
+    x, delta = rand(torch, gen, (8, 2048), bf, dev), rand(torch, gen, (8, 2048), bf, dev)
+    scale = rand(torch, gen, (2048,), bf, dev, 0.1, 1.0)
+    same_bits_twice(torch, lambda: norm(x, scale, eps=1e-6, delta=delta),
+                    "norm decode shape + residual")
+    return max(errs)
+
+
+def check_qk_rope_case(torch, gen, dev, B, S, H, KV, dh, dt, what, cache=None):
+    """One qk_rope input through the kernel and the plain version: RoPE
+    alone bit for bit; the qk-norm alone within its tolerance; qk-norm +
+    RoPE equal to the plain RoPE of the kernel's own qk-norm output, bit for
+    bit; with ``cache`` = (rows, cache_len, window) the decode write too,
+    equal to the plain write of the kernel's own k.  Returns the qk-norm's
+    largest error."""
+    from repro_torch.kernels.qk_rope import apply_rope_ref, qk_rope, qk_rope_ref, scatter_time_ref
+
+    q, k = rand(torch, gen, (B, S, H, dh), dt, dev), rand(torch, gen, (B, S, KV, dh), dt, dev)
+    qs, ks = rand(torch, gen, (dh,), dt, dev, 0.1, 1.0), rand(torch, gen, (dh,), dt, dev, 0.1, 1.0)
+    if cache is None:
+        pos = torch.arange(S, device=dev)[None].expand(B, S)  # int64, the prefill's
+    else:
+        pos = cache[1][:, None]  # int32 cache_len, the decode's
+    theta = 1e6
+    got, want = qk_rope(q, k, pos, theta=theta), qk_rope_ref(q, k, pos, theta=theta)
+    torch.cuda.synchronize()
+    need(all(bits_equal(torch, a, b) for a, b in zip(got, want)), f"{what}: RoPE differs")
+    normed = qk_rope(q, k, q_scale=qs, k_scale=ks)
+    want = qk_rope_ref(q, k, q_scale=qs, k_scale=ks)
+    err = max(check_norm_out(torch, a, b, f"{what} qk-norm of {n}")
+              for a, b, n in zip(normed, want, "qk"))
+    both = qk_rope(q, k, pos, theta=theta, q_scale=qs, k_scale=ks)
+    need(all(bits_equal(torch, a, apply_rope_ref(n, pos, theta)) for a, n in zip(both, normed)),
+         f"{what}: qk-norm + RoPE differs from RoPE of the kernel's qk-norm")
+    note = ""
+    if cache is not None:
+        rows, cache_len, window = cache
+        slot = cache_len % window if window else cache_len
+        v = rand(torch, gen, (B, 1, KV, dh), dt, dev)
+        kc, vc = rand(torch, gen, (B, rows, KV, dh), dt, dev), rand(torch, gen, (B, rows, KV, dh), dt, dev)
+        kr, vr = kc.clone(), vc.clone()
+        _, k_out = qk_rope(q, k, pos, theta=theta, q_scale=qs, k_scale=ks, v=v, k_cache=kc,
+                           v_cache=vc, slot=slot)
+        scatter_time_ref(kr, k_out, slot)
+        scatter_time_ref(vr, v, slot)
+        torch.cuda.synchronize()
+        need(bits_equal(torch, kc, kr) and bits_equal(torch, vc, vr),
+             f"{what}: the cache write differs from the plain write")
+        note = f", cache write at slots {slot.tolist()} of {rows} rows equal"
+    log(f"  {what}: RoPE (positions {int(pos.min())}..{int(pos.max())}) bit for bit, "
+        f"qk-norm + RoPE equal to RoPE of its qk-norm{note}")
+    return err
+
+
+def qk_rope_cases(torch, dev):
+    """kernels.qk_rope against its plain version at the main path's decode
+    and prefill shapes (qwen3-1.7b, bf16), d_head 64 / 96 / 128 / 160 / 256,
+    odd token counts, f32, a ring slot, position 0 and a position past the
+    cache's end (clamped to the last row)."""
+    from repro_torch.kernels.qk_rope import qk_rope
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+    bf, f32 = torch.bfloat16, torch.float32
+    i32 = dict(dtype=torch.int32, device=dev)
+    lens = torch.tensor([0, 1, 517, 1024, 2046, 2047, 2048, 3000], **i32)
+    errs = [check_qk_rope_case(torch, gen, dev, 8, 1, 16, 8, 128, bf, "qk_rope decode "
+                               "(8,1,16|8,128) bf16", (MAX_LEN, lens, 0)),
+            check_qk_rope_case(torch, gen, dev, 1, 1024, 16, 8, 128, bf,
+                               "qk_rope prefill (1,1024,16|8,128) bf16")]
+    for dh in (64, 96, 128, 160, 256):
+        for dt in (bf, f32):
+            errs.append(check_qk_rope_case(
+                torch, gen, dev, 3, 1, 8, 2, dh, dt, f"qk_rope decode dh={dh} {str(dt)[6:]}",
+                (300, torch.tensor([0, 299, 4000], **i32), 0)))
+            errs.append(check_qk_rope_case(torch, gen, dev, 2, 37, 8, 2, dh, dt,
+                                           f"qk_rope S=37 dh={dh} {str(dt)[6:]}"))
+    # a ring cache (recurrentgemma's local attention: slot cache_len % window)
+    errs.append(check_qk_rope_case(torch, gen, dev, 4, 1, 10, 1, 256, bf,
+                                   "qk_rope ring dh=256 bf16",
+                                   (2048, torch.tensor([5, 2047, 2048, 4101], **i32), 2048)))
+    q, k = rand(torch, gen, (8, 1, 16, 128), bf, dev), rand(torch, gen, (8, 1, 8, 128), bf, dev)
+    s = rand(torch, gen, (128,), bf, dev, 0.1, 1.0)
+    pos = lens[:, None]
+    same_bits_twice(torch, lambda: qk_rope(q, k, pos, theta=1e6, q_scale=s, k_scale=s),
+                    "qk_rope decode shape")
+    return max(errs)
+
+
+def glu_cases(torch, dev):
+    """kernels.glu against its plain version, bit for bit: SiLU and GELU at
+    the main path's decode and prefill shapes (qwen3-1.7b's d_ff 6144),
+    GeGLU's widths (paligemma 16384), deepseek's experts (64 x C x 1408),
+    f32, inputs from -30 to 30, and a ragged tail past the 16-byte vectors."""
+    from repro_torch.kernels.glu import glu, glu_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 32)
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = [((8, 1, 6144), bf), ((1, 1024, 6144), bf), ((8, 1, 16384), bf),
+              ((64, 24, 1408), bf), ((8, 1, 6144), f32), ((3, 5, 1365), bf), ((2, 4099), f32)]
+    n = 0
+    for kind in ("silu", "gelu"):
+        for shape, dt in shapes:
+            a, b = rand(torch, gen, shape, dt, dev, 4.0), rand(torch, gen, shape, dt, dev)
+            got = glu(a, b, kind=kind)
+            torch.cuda.synchronize()
+            want = glu_ref(a, b, kind=kind)
+            if not bits_equal(torch, got, want):
+                bad = got != want
+                log(f"  glu {kind} {shape} {str(dt)[6:]}: {int(bad.sum())} of {got.numel()} "
+                    f"differ, e.g. a={a[bad][:4].tolist()} kernel={got[bad][:4].tolist()} "
+                    f"plain={want[bad][:4].tolist()}")
+            need(bits_equal(torch, got, want), f"glu {kind} {shape}: differs from the plain version")
+            n += 1
+        sweep = torch.linspace(-30, 30, 8 * 4099, device=dev)
+        for dt in (bf, f32):
+            a = sweep.to(dt)
+            need(bits_equal(torch, glu(a, a, kind=kind), glu_ref(a, a, kind=kind)),
+                 f"glu {kind} over -30..30 {str(dt)[6:]}: differs from the plain version")
+            n += 1
+    a, b = rand(torch, gen, (8, 1, 6144), bf, dev), rand(torch, gen, (8, 1, 6144), bf, dev)
+    same_bits_twice(torch, lambda: glu(a, b), "glu decode shape")
+    log(f"  glu: {n} cases (silu and gelu; decode, prefill, GeGLU, MoE experts, f32, "
+        f"-30..30, ragged tails) equal to the plain version bit for bit")
+    return 0.0
+
+
+def fused_inputs(torch, dev, B, S):
+    """Seeded inputs of the three fused kernels at qwen3-1.7b's shapes for
+    B x S tokens (decode: B 8, S 1, the caches 2048 rows, cache_len near
+    phase 4's 1,055; prefill: B 1, S 1024)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 33)
+    bf = torch.bfloat16
+    d, H, KV, dh, ff = 2048, 16, 8, 128, 6144
+    x, delta = rand(torch, gen, (B, S, d), bf, dev), rand(torch, gen, (B, S, d), bf, dev)
+    scale = rand(torch, gen, (d,), bf, dev, 0.1, 1.0)
+    q, k, v = (rand(torch, gen, (B, S, n, dh), bf, dev) for n in (H, KV, KV))
+    qs, ks = (rand(torch, gen, (dh,), bf, dev, 0.1, 1.0) for _ in range(2))
+    rope = dict(theta=1e6, q_scale=qs, k_scale=ks)
+    if S == 1:
+        cache_len = torch.tensor([1000, 1024, 1100, 1050, 1080, 1010, 1090, 1060],
+                                 dtype=torch.int32, device=dev)[:B]
+        pos = cache_len[:, None]
+        caches = [rand(torch, gen, (B, MAX_LEN, KV, dh), bf, dev) for _ in range(2)]
+        rope.update(v=v, k_cache=caches[0], v_cache=caches[1], slot=cache_len)
+    else:
+        pos = torch.arange(S, device=dev)[None].expand(B, S)
+    a, b = rand(torch, gen, (B, S, ff), bf, dev, 4.0), rand(torch, gen, (B, S, ff), bf, dev)
+    return {"norm": (x, delta, scale), "qk_rope": (q, k, pos, rope), "glu": (a, b)}
+
+
+def time_fused(torch, dev):
+    """Phase 6: each fused kernel at its decode and prefill shapes: CUDA-event
+    time, its plain version's, one PyTorch call where one computes the same
+    function (F.rms_norm for the norm), the byte bound at the card's memory
+    rate and one torch.sum over as many bytes.  Returns the decode shape's
+    numbers for the kernels line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.glu import glu, glu_ref
+    from repro_torch.kernels.norm import norm, norm_ref
+    from repro_torch.kernels.qk_rope import qk_rope, qk_rope_ref
+
+    out = {}
+    # the card idles while the host frees the twin engine; bring its clocks
+    # up before the first timing, as phase 6's first line does
+    tiny = torch.zeros(1, device=dev)
+    log(f"  timing floor: a one-element kernel {time_ms(torch, dev, lambda: tiny.add_(1), iters=50):.4f} ms")
+    for label, B, S in (("decode", 8, 1), ("prefill", 1, 1024)):
+        inp = fused_inputs(torch, dev, B, S)
+        x, delta, scale = inp["norm"]
+        d = x.shape[-1]
+        rows = x.numel() // d
+        esz = x.element_size()
+        q, k, pos, rope = inp["qk_rope"]
+        a, b = inp["glu"]
+        qk_bytes = 2 * (q.numel() + k.numel()) * esz + 2 * q.shape[-1] * esz + pos.numel() * pos.element_size()
+        if "v_cache" in rope:  # v read; the k and v rows written
+            qk_bytes += 3 * rope["v"].numel() * esz + 4 * B
+        runs = {
+            # name: (kernel, plain, library or None, bytes, f32 ops)
+            "norm": (lambda: norm(x, scale, eps=1e-6), lambda: norm_ref(x, scale, eps=1e-6),
+                     lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-6),
+                     2 * x.numel() * esz + d * esz, 4 * x.numel()),
+            "norm + residual": (lambda: norm(x, scale, eps=1e-6, delta=delta),
+                                lambda: norm_ref(x, scale, eps=1e-6, delta=delta), None,
+                                4 * x.numel() * esz + d * esz, 5 * x.numel()),
+            "qk_rope": (lambda: qk_rope(q, k, pos, **rope), lambda: qk_rope_ref(q, k, pos, **rope),
+                        None, qk_bytes, 14 * (q.numel() + k.numel())),
+            "glu": (lambda: glu(a, b), lambda: glu_ref(a, b), None, 3 * a.numel() * esz,
+                    6 * a.numel()),
+        }
+        for name, (kern, plain, lib, n_bytes, n_ops) in runs.items():
+            b_ms, b_by = bound(n_bytes, n_ops, F32_FLOPS)
+            ms = time_ms(torch, dev, kern, iters=50)
+            plain_ms = time_ms(torch, dev, plain, iters=20)
+            lib_ms = time_ms(torch, dev, lib, iters=50) if lib is not None else None
+            floor = read_floor_ms(torch, dev, n_bytes)
+            lib_txt = f"{lib_ms:.4f} ms (F.rms_norm)" if lib_ms is not None else "none"
+            log(f"  {name} {label} ({rows} rows x {d}; q {tuple(q.shape)}, glu {tuple(a.shape)}):"
+                f" {n_bytes} bytes, {n_ops} f32 ops; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"library {lib_txt}, bound {b_ms:.4f} ms ({b_by}); one torch.sum over as many "
+                f"bytes {floor:.4f} ms")
+            if label == "decode" and name in ("norm", "qk_rope", "glu"):
+                out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": lib_ms}
+        del inp
+    return out
+
+
+def plain_chain_twin(torch, dev, engine):
+    """A second engine over ``engine``'s parameters, built under the
+    plain-on-card switch, so its decode graph records the plain chains (the
+    model body before the fused kernels), with ``engine``'s state copied in."""
+    from repro_torch.kernels._plain import plain_on_card
+    from repro_torch.serving.engine import GenerationEngine
+
+    with plain_on_card():
+        twin = GenerationEngine(engine.cfg, engine.params, max_batch=engine.max_batch,
+                                max_len=engine.max_len, eos_id=engine.eos_id, device=dev)
+    for dst, src in zip(twin._buffers(), engine._buffers(), strict=True):
+        dst.copy_(src)
+    twin.free_slots = list(engine.free_slots)
+    return twin
+
+
+def first_difference(a, b):
+    """(sequence, step) of the first token where two lists of streams differ."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for t, (u, w) in enumerate(zip(x, y)):
+            if u != w:
+                return i, t
+        if len(x) != len(y):
+            return i, min(len(x), len(y))
+    return None
+
+
+def teacher_forced(torch, dev, cfg, params, padded, tokens, steps):
+    """Logits (B 1) of the prefill of ``padded`` and of ``steps`` decode steps
+    fed ``tokens``, each step's as f32 on the card."""
+    from repro_torch.models import lm
+
+    toks = torch.as_tensor(padded, dtype=torch.int64, device=dev)[None]
+    logits, state = lm.prefill(params, cfg, toks, max_len=MAX_LEN)
+    out = [logits[0]]
+    for t in range(steps):
+        logits, state = lm.decode_step(params, cfg, torch.tensor([tokens[t]], dtype=torch.int32,
+                                                                 device=dev), state)
+        out.append(logits[0])
+    return out
+
+
+def full_width_streams(torch, dev, params, cfg):
+    """qwen3-1.7b at full width and depth (bf16): 8 prompts x MAX_NEW tokens
+    through the captured engine with the fused kernels and through one built
+    under the plain-on-card switch.  The greedy streams must be equal; where
+    they differ, the plain run's top-2 logit margin at the first differing
+    step must be below the largest logit difference of the two, teacher-
+    forced on the plain run's tokens to that step (a flip at a near-tie is
+    rounding; any other flip is a fault)."""
+    import numpy as np
+
+    from repro_torch.kernels._plain import plain_on_card
+    from repro_torch.serving.engine import GenerationEngine, _bucket
+
+    rng = np.random.default_rng(SEED + 34)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int64)
+               for n in rng.integers(512, 1025, size=MAX_BATCH)]
+
+    def run():
+        engine = GenerationEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN, eos_id=-1,
+                                  device=dev)
+        seqs = [engine.seqs[engine.add_sequence(p, max_new=MAX_NEW)] for p in prompts]
+        while engine.seqs:
+            engine.step()
+        sync(torch, dev)
+        return [list(s.tokens) for s in seqs]
+
+    t0 = time.perf_counter()
+    got = run()
+    with plain_on_card():
+        want = run()
+    diff = first_difference(got, want)
+    log(f"  {cfg.name} full width and depth, {len(prompts)} prompts x {MAX_NEW} tokens: captured "
+        f"engine with the fused kernels vs the plain chains: streams "
+        f"{'equal' if diff is None else f'differ first at sequence {diff[0]} step {diff[1]}'} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    if diff is None:
+        return
+    i, t = diff
+    n = len(prompts[i])
+    keep = max(MAX_LEN - min(MAX_NEW, MAX_LEN // 2), 1)
+    pad_to = min(_bucket(n), keep)
+    padded = np.zeros((pad_to,), np.int64)
+    padded[pad_to - n:] = prompts[i]
+    fused = teacher_forced(torch, dev, cfg, params, padded, want[i], t)[t]
+    with plain_on_card():
+        plain = teacher_forced(torch, dev, cfg, params, padded, want[i], t)[t]
+    top2 = torch.topk(plain.float(), 2).values
+    margin = float(top2[0] - top2[1])
+    max_diff = float((fused.float() - plain.float()).abs().max())
+    log(f"  at that step the plain run's top-2 logit margin is {margin:.4e}, the teacher-forced "
+        f"max |logit difference| {max_diff:.4e}: "
+        f"{'a near-tie (rounding)' if margin < max_diff else 'NOT a near-tie'}")
+    need(margin < max_diff, f"{cfg.name}: the streams differ where the logits are no near-tie")
+
+
+# ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
 
@@ -681,18 +1099,19 @@ class Recorder:
 
 
 def serve_main_path(torch, dev, index, embedder, arch=ARCH,
-                    kernels=("ivf_scan", "decode_attention")):
+                    kernels=("ivf_scan", "decode_attention", "norm", "qk_rope", "glu")):
     """``arch`` at full width and depth (bf16, seeded random weights) served
     through ``Server`` + ``RealBackend``; each kernel of ``kernels`` must
-    launch (MLA decodes without ``decode_attention``)."""
+    launch (MLA decodes without ``decode_attention`` and ``qk_rope``).  The
+    fused kernels launch only inside the engine's graphs: their counts come
+    from the replays."""
     import numpy as np
 
     import repro_torch.models.layers as layers_mod
     import repro_torch.retrieval.hybrid as hybrid_mod
     from repro_torch import workflows
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.ivf_scan import ivf_scan
+    from repro_torch.kernels import wrappers
     from repro_torch.launch.serve import build_server
     from repro_torch.models import lm
     from repro_torch.retrieval import HybridRetrievalEngine
@@ -722,7 +1141,7 @@ def serve_main_path(torch, dev, index, embedder, arch=ARCH,
                                   device=dev)
         sync(torch, dev)
         log(f"  engine: decode step captured as one CUDA graph: {engine._graph is not None} "
-            f"({engine._graph_launches} decode_attention launches a replay; warm-up + capture "
+            f"(kernel launches a replay {engine._graph_launches}; warm-up + capture "
             f"{time.perf_counter() - t0:.2f}s)")
         need(engine._graph is not None or dev.type != "cuda",
              "the engine did not capture its decode step on the card")
@@ -764,15 +1183,17 @@ def serve_main_path(torch, dev, index, embedder, arch=ARCH,
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
             reserved0 = torch.cuda.memory_reserved()  # before the first prefill capture
-        ivf_scan.launches = 0
-        decode_attention.launches = 0
+        serving = {n: w for n, w in wrappers().items() if n != "topk_merge"}
+        for w in serving.values():
+            w.launches = w.plain_calls = 0
         t0 = time.perf_counter()
         for i, name in enumerate(names):
             server.add_request(f"request {i}", workflows.build(name), arrival_us=i * ARRIVAL_GAP_US)
         m = server.run()
         sync(torch, dev)
         wall = time.perf_counter() - t0
-        launches = {"ivf_scan": ivf_scan.launches, "decode_attention": decode_attention.launches}
+        launches = {n: w.launches for n, w in serving.items()}
+        plain = {n: w.plain_calls for n, w in serving.items()}
     finally:
         hybrid_mod.ivf_scan, layers_mod.decode_attention = ivf_rec.fn, attn_rec.fn
     st = hybrid.stats()
@@ -782,7 +1203,7 @@ def serve_main_path(torch, dev, index, embedder, arch=ARCH,
         f"substages_with_device_probes={launches['ivf_scan']} cache_hits={st['hits']} "
         f"cache_misses={st['misses']} uploads={st['uploads']}")
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else "not measured"
-    log(f"  launches: {launches}  max_memory_allocated={peak} bytes")
+    log(f"  launches: {launches}; plain-version calls {plain}  max_memory_allocated={peak} bytes")
     prefill = {k: sum(spent[k]) for k in ("captured", "replayed", "eager")}
     split = ", ".join(f"{len(spent[k])} {k} {prefill[k]:.3f}s"
                       f"{f' ({1e3 * prefill[k] / len(spent[k]):.2f} ms each)' if spent[k] else ''}"
@@ -800,6 +1221,9 @@ def serve_main_path(torch, dev, index, embedder, arch=ARCH,
     need(m.finished == N_REQUESTS, f"finished {m.finished} of {N_REQUESTS} requests")
     for name in kernels:
         need(launches[name] > 0, f"the main path launched {name} no time")
+    # a CUDA tensor of the serving path never reaches a plain version
+    need(dev.type != "cuda" or not any(plain.values()),
+         f"the main path took plain versions on the card: {plain}")
     need(len(generated) > 0 and all(0 <= t < cfg.vocab_size for t in generated),
          "generated tokens must lie in the vocabulary")
     return launches, ivf_rec.best, attn_rec.best, hybrid, engine
@@ -924,7 +1348,7 @@ def serve_moe_path(torch, dev, index, embedder):
     from repro_torch.configs import get_config
 
     launches, _, _, hybrid, engine = serve_main_path(torch, dev, index, embedder, arch=MOE_ARCH,
-                                                     kernels=("ivf_scan",))
+                                                     kernels=("ivf_scan", "norm", "glu"))
     if dev.type == "cuda":
         time_decode_step(torch, dev, engine, MOE_ARCH, eager_iters=3)
         time_prefill(torch, dev, engine, MOE_ARCH, PREFILL_WIDTHS[-1:], eager_iters=2)
@@ -979,13 +1403,18 @@ def serve_stream(engine, prompts):
 
 
 def captured_vs_eager(torch, dev, cfg, seed, what):
-    """Two engines over one set of weights serve the same prompts through 2
-    slots: one replays its captured graphs (the decode step's and one
+    """Three engines over one set of weights serve the same prompts through
+    2 slots: one replays its captured graphs (the decode step's and one
     prefill graph a padded width, 504 among the widths, replayed out of
-    capture order), the other (both graphs dropped) runs the same bodies op
-    by op.  The greedy tokens must be equal."""
+    capture order), one (both graphs dropped) runs the same bodies op by
+    op, and one captured under the plain-on-card switch replays graphs of
+    the plain chains instead of the fused kernels.  The greedy tokens must
+    be equal."""
+    import contextlib
+
     import numpy as np
 
+    from repro_torch.kernels._plain import plain_on_card
     from repro_torch.models import lm
     from repro_torch.serving.engine import GenerationEngine
 
@@ -995,23 +1424,28 @@ def captured_vs_eager(torch, dev, cfg, seed, what):
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in ENGINE_PROMPTS]
     runs = []
-    for captured in (True, False):
-        engine = GenerationEngine(cfg, params, max_batch=2, max_len=ENGINE_MAX_LEN, eos_id=-1,
-                                  device=dev)
-        need(engine._graph is not None, f"{what}: the engine did not capture its decode step")
-        if not captured:
-            engine._graph, engine._capture_prefills = None, False  # the bodies, op by op
-        runs.append(serve_stream(engine, prompts))
-        if captured:
-            widths = prefill_graphs(engine)
+    for kind in ("captured", "eager", "plain chains"):
+        with plain_on_card() if kind == "plain chains" else contextlib.nullcontext():
+            engine = GenerationEngine(cfg, params, max_batch=2, max_len=ENGINE_MAX_LEN, eos_id=-1,
+                                      device=dev)
+            need(engine._graph is not None, f"{what}: the engine did not capture its decode step")
+            if kind == "eager":
+                engine._graph, engine._capture_prefills = None, False  # the bodies, op by op
+            runs.append(serve_stream(engine, prompts))
+        if kind == "captured":
+            widths, fused = prefill_graphs(engine), dict(engine._graph_launches)
         del engine
-    (got, steps), (want, _) = runs
-    same = got == want
+    (got, steps), (want, _), (plain, _) = runs
+    same, same_plain = got == want, got == plain
     log(f"  {what} ({cfg.n_layers} layers {cfg.dtype}): captured engine (prefill graphs at "
-        f"widths {widths}) vs its eager bodies, {len(prompts)} prompts through 2 slots, {steps} "
-        f"steps: greedy tokens {'equal' if same else 'DIFFER'} ({sum(map(len, got))} tokens)")
+        f"widths {widths}; a decode replay launches {fused}) vs its eager bodies, "
+        f"{len(prompts)} prompts through 2 slots, {steps} steps: greedy tokens "
+        f"{'equal' if same else 'DIFFER'} ({sum(map(len, got))} tokens); vs the captured "
+        f"plain chains: {'equal' if same_plain else 'DIFFER'}")
     need(widths == list(ENGINE_WIDTHS), f"{what}: prefill graphs at widths {widths}")
+    need(fused.get("norm", 0) > 0, f"{what}: the decode graph launches no fused norm: {fused}")
     need(same, f"{what}: the captured engine's greedy tokens differ from the eager bodies'")
+    need(same_plain, f"{what}: the fused kernels' greedy tokens differ from the plain chains'")
 
 
 def int8_cosine(torch, dev, cfg, B, S, steps):
@@ -1067,11 +1501,9 @@ def free(torch, dev):
 
 
 def kernel_wrappers():
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.ivf_scan import ivf_scan
-    from repro_torch.kernels.topk_merge import topk_merge
+    from repro_torch.kernels import wrappers
 
-    return {"ivf_scan": ivf_scan, "decode_attention": decode_attention, "topk_merge": topk_merge}
+    return wrappers()
 
 
 def train_full(torch, dev):
@@ -1801,7 +2233,7 @@ def serve_wallclock_stack(torch, dev, index, embedder, params, cfg):
     import numpy as np
 
     import repro_torch.retrieval.hybrid as hybrid_mod
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels import wrappers
     from repro_torch.kernels.ivf_scan import ivf_scan
     from repro_torch.serving import ingress
 
@@ -1841,13 +2273,15 @@ def serve_wallclock_stack(torch, dev, index, embedder, params, cfg):
     hybrid_mod.ivf_scan = ivf_rec
     try:
         torch.cuda.reset_peak_memory_stats()
-        ivf_scan.launches = 0
-        decode_attention.launches = 0
+        serving = {n: w for n, w in wrappers().items() if n != "topk_merge"}
+        for w in serving.values():
+            w.launches = w.plain_calls = 0
         t0 = time.perf_counter()
         m, trace = server.serve_wallclock(stream, speedup=1.0, max_wall_s=WC_MAX_WALL_S)
         sync(torch, dev)
         wall = time.perf_counter() - t0
-        launches = {"ivf_scan": ivf_scan.launches, "decode_attention": decode_attention.launches}
+        launches = {n: w.launches for n, w in serving.items()}
+        plain = {n: w.plain_calls for n, w in serving.items()}
     finally:
         hybrid_mod.ivf_scan = ivf_rec.fn
         hybrid.search_plan = plain_search
@@ -1870,6 +2304,7 @@ def serve_wallclock_stack(torch, dev, index, embedder, params, cfg):
          f"finished {m.finished} of {len(stream)} requests")
     for name, n in launches.items():
         need(n > 0, f"phase 9 launched {name} no time")
+    need(not any(plain.values()), f"phase 9 took plain versions on the card: {plain}")
     need(n_fused > 0, "the cross-request layer fused no query")
     need(st["replica_loads"] > 0, "no replica was loaded")
     need(fused["input"] is not None, "no fused plan went through the device path")
@@ -2357,11 +2792,12 @@ def step_bytes(engine):
     return params + state
 
 
-def profile_once(torch, fn):
-    """(device ops, device-busy ms, wall ms, the 3 costliest kernels) of one
-    ``fn()`` under ``torch.profiler`` (CPU and CUDA activities), after one
-    call outside it; busy time is the union of the ops' device intervals,
-    wall time the host clock around the call and its synchronize."""
+def profile_once(torch, fn, n_top=3):
+    """(device ops, device-busy ms, wall ms, the ``n_top`` costliest kernel
+    names with their summed ms and counts) of one ``fn()`` under
+    ``torch.profiler`` (CPU and CUDA activities), after one call outside it;
+    busy time is the union of the ops' device intervals, wall time the host
+    clock around the call and its synchronize."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2382,20 +2818,29 @@ def profile_once(torch, fn):
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return len(spans), busy / 1e3, wall, [(n[:60], round(us / 1e3, 4)) for n, us in top]
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.end - e.time_range.start, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
+    return len(spans), busy / 1e3, wall, [(n[:60], round(us / 1e3, 4), c) for n, (us, c) in top]
 
 
-def log_profile(torch, what, fn):
-    """Print ``profile_once`` of ``fn``: device ops, busy and wall time."""
-    n_ops, busy, wall, top = profile_once(torch, fn)
+def log_profile(torch, what, fn, n_top=3):
+    """Print ``profile_once`` of ``fn``: device ops, busy and wall time, the
+    costliest kernel names (ms summed over the call, launches); with
+    ``n_top`` > 3 one line a name."""
+    n_ops, busy, wall, top = profile_once(torch, fn, n_top)
     if n_ops == 0:
         log(f"  profiler, one {what}: no device activity traced (not measured); "
             f"wall {wall:.3f} ms")
         return
-    log(f"  profiler, one {what}: {n_ops} device ops, device busy {busy:.3f} ms of "
-        f"{wall:.3f} ms wall ({100 * busy / wall:.1f}%); costliest {top}")
+    head = (f"  profiler, one {what}: {n_ops} device ops, device busy {busy:.3f} ms of "
+            f"{wall:.3f} ms wall ({100 * busy / wall:.1f}%)")
+    if n_top <= 3:
+        log(f"{head}; costliest (name, ms, launches) {top}")
+        return
+    log(f"{head}; device time by kernel name, top {n_top} (ms, launches):")
+    for name, ms, count in top:
+        log(f"    {ms:9.4f} ms {count:6d}x  {name}")
 
 
 def time_decode_step(torch, dev, engine, what, eager_iters=5):
@@ -2413,7 +2858,7 @@ def time_decode_step(torch, dev, engine, what, eager_iters=5):
         f"{replay:.3f} ms ({eager / replay:.1f}x); byte floor {floor_ms:.3f} ms ({n_bytes} bytes "
         f"at {HBM_BYTES_PER_S / 1e12} TB/s; the replay at {100 * floor_ms / replay:.1f}% of it)")
     for name, fn in (("eager", engine._decode), ("replay", engine._graph.replay)):
-        log_profile(torch, f"{name} step", fn)
+        log_profile(torch, f"{name} step", fn, n_top=15 if name == "replay" else 3)
     return eager, replay
 
 
@@ -2489,7 +2934,8 @@ def time_prefill(torch, dev, engine, what, widths, eager_iters=3):
             f"TFLOP/s, {n_bytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s; the replay at "
             f"{100 * floor_ms / replay:.1f}% of it)")
         for name, fn in (("eager", body), ("replay", buf.graph.replay)):
-            log_profile(torch, f"{name} prefill at width {width}", fn)
+            log_profile(torch, f"{name} prefill at width {width}", fn,
+                        n_top=15 if name == "replay" else 3)
     log(f"  {what} prefill graphs' pool: {pool_bytes(torch, engine._prefill_pool)} bytes for "
         f"widths {prefill_graphs(engine)}; memory_reserved {torch.cuda.memory_reserved()} bytes")
 
@@ -2564,6 +3010,20 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
         f"{100 * n_layers * attn_ms / eager_ms:.1f}% of the eager step, "
         f"{100 * n_layers * attn_ms / replay_ms:.1f}% of the replay")
     time_prefill(torch, dev, engine, ARCH, PREFILL_WIDTHS)
+    # the same step and admissions through the plain chains (the model body
+    # before the fused kernels), on one card in one run: the before of the
+    # fused kernels' after
+    from repro_torch.kernels._plain import plain_on_card
+
+    twin = plain_chain_twin(torch, dev, engine)
+    with plain_on_card():
+        time_decode_step(torch, dev, twin, f"{ARCH} plain chains")
+        time_prefill(torch, dev, twin, f"{ARCH} plain chains", PREFILL_WIDTHS)
+    del twin
+    free(torch, dev)
+    fused = time_fused(torch, dev)
+    full_width_streams(torch, dev, engine.params, engine.cfg)
+    free(torch, dev)
 
     # beside the wrapper's chunk, the network's other choices: at the
     # sharded input (16 rows: one 64-key chunk holds a row) K'-key chunks
@@ -2582,6 +3042,7 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
         "ivf_scan": ivf,
         "decode_attention": {"ms": attn_ms, "plain_ms": attn_plain, "bound_ms": attn_bound,
                              "bound_by": attn_by, "library_ms": attn_lib},
+        **fused,
     }
 
 
@@ -2652,6 +3113,8 @@ def main() -> int:
     attn_err = attn_cases(torch, attn_ops, attn_ref, dev)
     merge_err = merge_cases(torch, merge_ops, merge_ref, dev)
     log(f"  ivf_scan boundary ties counted: {ivf_ties}")
+    fused_err = {"norm": norm_cases(torch, dev), "qk_rope": qk_rope_cases(torch, dev),
+                 "glu": glu_cases(torch, dev)}
 
     # 4. the main path ----------------------------------------------------------
     log("[4] main path: Server + RealBackend, 8 requests")
@@ -2716,9 +3179,10 @@ def main() -> int:
     # 11. the rest of the zoo at full width ----------------------------------
     log("[11] the zoo at full width: decode vs prefill per family; int8 KV cache")
     t0 = time.perf_counter()
-    attn_ops.decode_attention.launches = 0
+    for w in kernel_wrappers().values():
+        w.launches = 0
     zoo_checks(torch, dev)
-    zoo_launches = {"decode_attention": attn_ops.decode_attention.launches}
+    zoo_launches = {n: w.launches for n, w in kernel_wrappers().items()}
     log(f"  phase 11 took {time.perf_counter() - t0:.1f}s")
 
     # 12. training ---------------------------------------------------------
@@ -2762,9 +3226,22 @@ def main() -> int:
          "launches": merge_launches + train_launches["topk_merge"], "max_abs_err": merge_err,
          **t["topk_merge"]},
     ]
+    # the fused kernels of the model body: no Pallas kernel; each replaces the
+    # JAX function whose ops XLA fuses (apply_norm, apply_rope with
+    # rms_norm_headwise and _scatter_time, apply_ffn's gated product)
+    for name, replaces in (("norm", "src/repro/models/layers.py:54"),
+                           ("qk_rope", "src/repro/models/layers.py:82"),
+                           ("glu", "src/repro/models/layers.py:564")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": sum(ph.get(name, 0) for ph in (launches, wc_launches, moe_launches,
+                                                        zoo_launches, train_launches)),
+            "max_abs_err": fused_err[name], **t[name]})
     log(f"  total {time.perf_counter() - t_all:.1f}s")
     need(all(np.isfinite([r["ms"], r["plain_ms"], r["bound_ms"]]).all() for r in kernels),
          "a time is not finite")
+    need(all(r["launches"] > 0 for r in kernels), "a kernel of the path launched no time")
     log(smi_line)  # again, beside the results, for a reader of the output's end
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -40,6 +40,46 @@ template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4&
   }
 }
 
+// One value widened to f32 (exact for bf16), and an f32 rounded to T's
+// precision and widened back: the value a plain chain stores and reloads
+// when it writes an intermediate tensor in T (round to nearest even).
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// 16 raw bytes from 4 f32 or 8 bf16 values, each f32 rounded to T (the
+// inverse of unpack16).
+template <typename T> __device__ __forceinline__ uint4 pack16(const float* f);
+template <> __device__ __forceinline__ uint4 pack16<float>(const float* f) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+template <> __device__ __forceinline__ uint4 pack16<__nv_bfloat16>(const float* f) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned lo = __bfloat16_as_ushort(__float2bfloat16(f[2 * i]));
+    const unsigned hi = __bfloat16_as_ushort(__float2bfloat16(f[2 * i + 1]));
+    w[i] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Sum of v over the block (blockDim.x a multiple of 32, at most 1024),
+// returned in every thread.  `red` is 32 floats of shared memory.  The
+// order of the additions is fixed by the thread layout, so two launches
+// on one input give the same bits.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // red may still be read by an earlier call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  return warp_sum(lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0.f);
+}
+
 // Cross-block combine of a split grid.  Every thread of a block calls this
 // after writing the block's partial result; it returns true, in every
 // thread, in the last of the `n` blocks to arrive at `*counter`, and that

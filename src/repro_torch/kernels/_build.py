@@ -29,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("ivf_scan", "decode_attention", "topk_merge")
+KERNELS = ("ivf_scan", "decode_attention", "topk_merge", "norm", "qk_rope", "glu")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (

@@ -15,6 +15,15 @@ Conventions (as in the JAX package's ``models/layers.py``)
                     state, nothing written in place into a parameter
     mode='prefill'  full sequence, returns a decode state
     mode='decode'   one new token per sequence, consumes + returns state
+* The serving modes ('prefill', 'decode') run the model body's elementwise
+  chains through the fused Hopper kernels ``kernels.norm`` (the norms, and
+  the residual add before a block's second norm), ``kernels.qk_rope``
+  (qk-norm, RoPE and decode's K/V cache write) and ``kernels.glu`` (the
+  gated activation), whose wrappers take their plain versions on CPU
+  tensors.  'train' (the kernels have no backward), 'forward' (the
+  reference) and DTensors (the mesh paths) run the plain chains, which are
+  those plain versions (``_fused``).  MLA's partial-dims RoPE and the int8
+  cache's quantization stay plain.
 * Prefill attention is plain PyTorch (einsum, then an f32 softmax with the
   ``-1e30`` mask).  Decode attention over a K/V cache (full, ring window,
   or int8 dequantized to the model dtype) is the Hopper kernel
@@ -45,12 +54,22 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_ten
 from repro_torch.configs.base import ModelConfig, Segment
 from repro_torch.distributed.act_sharding import constrain, dp_total, layout
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.glu import glu, glu_ref
+from repro_torch.kernels.glu.ref import gelu
+from repro_torch.kernels.norm import norm, norm_ref
+from repro_torch.kernels.qk_rope import (
+    apply_rope_ref,
+    qk_rope,
+    rms_norm_headwise_ref,
+    scatter_time_ref,
+)
 
 Params = dict
 f32 = torch.float32
 
 MODES = ("forward", "train", "prefill", "decode")
 STATELESS = ("forward", "train")  # full sequence, no decode state
+SERVING = ("prefill", "decode")
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -60,6 +79,14 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 def check_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
+
+
+def _fused(mode: str, x) -> bool:
+    """Whether an op of the body takes the fused kernels' wrappers: in the
+    serving modes on plain tensors (the kernel on CUDA, its plain version
+    on the CPU).  Train mode, the forward reference and DTensors take the
+    plain chains, without the wrappers."""
+    return mode in SERVING and not isinstance(x, DTensor)
 
 
 # ---------------------------------------------------------------------------
@@ -110,45 +137,32 @@ def init_norm(cfg: ModelConfig, mk: Init, d: Optional[int] = None) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
-    if cfg.norm_type == "layernorm":
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
-    var = (xf**2).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(var + cfg.norm_eps)
-    return (y * p["scale"].float()).to(x.dtype)
+def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor, *, mode: str = "forward",
+               delta=None):
+    """The block's norm of x, or with ``delta`` of the residual sum x + delta:
+    returns y, or (x + delta, y).  A delta of another dtype is added first
+    (type promotion, as the plain chain), then normed alone."""
+    if delta is not None and delta.dtype != x.dtype:
+        x = x + delta
+        return x, apply_norm(cfg, p, x, mode=mode)
+    fn = norm if _fused(mode, x) else norm_ref
+    return fn(x, p["scale"], p.get("bias"), kind=cfg.norm_type, eps=cfg.norm_eps, delta=delta)
 
 
-def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Per-head qk-norm (Qwen3); eps is fixed at 1e-6 as in the JAX package."""
-    xf = x.float()
-    y = xf * torch.rsqrt((xf**2).mean(-1, keepdim=True) + eps)
-    return (y * scale.float()).to(x.dtype)
+def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+                      mode: str = "forward") -> torch.Tensor:
+    """Per-head qk-norm (Qwen3); eps is fixed at 1e-6 as in the JAX package.
+    The same arithmetic as an RMSNorm of the last dim: the serving modes run
+    it as ``kernels.norm``."""
+    if _fused(mode, x):
+        return norm(x, scale, kind="rmsnorm", eps=eps)
+    return rms_norm_headwise_ref(x, scale, eps)
 
 
 # ---------------------------------------------------------------------------
-# Positional embeddings
+# Positional embeddings (RoPE: ``kernels.qk_rope``, its plain version
+# ``apply_rope_ref``)
 # ---------------------------------------------------------------------------
-
-
-def rope_frequencies(d: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, d, 2, dtype=f32, device=device) / d))
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, H, d); positions: (..., S).  Split-half convention: the
-    first and second halves of d are the rotated pairs (not interleaved)."""
-    d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, x.device)             # (d/2,)
-    angles = positions[..., :, None].float() * freqs         # (..., S, d/2)
-    cos = torch.cos(angles)[..., :, None, :]
-    sin = torch.sin(angles)[..., :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
 
 
 def sinusoidal_embedding(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -286,7 +300,12 @@ def init_attention(cfg: ModelConfig, seg: Segment, mk: Init) -> Params:
     return p
 
 
-def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
+def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions, *, mode: str = "forward",
+         cache=None):
+    """q (B, S, H, dh), k and v (B, S, KV, dh) after the bias, qk-norm and
+    RoPE.  In the serving modes the norm and RoPE of q and k are one
+    ``qk_rope`` call, which with ``cache`` = (k_cache, v_cache, slot) also
+    writes the new K and V rows (decode)."""
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = x @ p["wq"]
@@ -297,12 +316,22 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
     q = constrain(split_heads(q, B, S, H, dh), "dp", None, "tp", None)
     k = constrain(split_heads(k, B, S, KV, dh), "dp", None, "tp", None)
     v = constrain(split_heads(v, B, S, KV, dh), "dp", None, "tp", None)
+    rope = cfg.pos_emb == "rope" and positions is not None
+    if _fused(mode, q):
+        if cfg.qk_norm or rope or cache is not None:
+            k_cache, v_cache, slot = cache or (None, None, None)
+            q, k = qk_rope(q, k, positions, theta=cfg.rope_theta if rope else None,
+                           q_scale=p["q_norm"] if cfg.qk_norm else None,
+                           k_scale=p["k_norm"] if cfg.qk_norm else None,
+                           v=None if cache is None else v, k_cache=k_cache, v_cache=v_cache,
+                           slot=slot)
+        return q, k, v
     if cfg.qk_norm:
         q = rms_norm_headwise(q, p["q_norm"])
         k = rms_norm_headwise(k, p["k_norm"])
-    if cfg.pos_emb == "rope" and positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope_ref(q, positions, cfg.rope_theta)
+        k = apply_rope_ref(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -349,10 +378,7 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor)
     """
     if isinstance(cache, DTensor):
         return _scatter_time_sharded(cache, new, lengths)
-    B, S = cache.shape[:2]
-    pos = lengths.long().clamp(0, S - 1)
-    cache[torch.arange(B, device=cache.device), pos] = new[:, 0].to(cache.dtype)
-    return cache
+    return scatter_time_ref(cache, new, lengths)
 
 
 def _prefill_cache(t: torch.Tensor, rows: int, window: int) -> torch.Tensor:
@@ -477,9 +503,8 @@ def apply_attention(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, 
     H, dh = cfg.n_heads, cfg.d_head
     window = cfg.local_window if seg.mixer == "local_attn" else 0
     causal = seg.mixer != "encoder_attn"
-    q, k, v = _qkv(cfg, p, x, positions)
-
     if mode != "decode":
+        q, k, v = _qkv(cfg, p, x, positions, mode=mode)
         out = blocked_attention(q, k, v, causal=causal, window=window, q_chunk=cfg.attn_q_chunk)
         out = merge_heads(constrain(out, "dp", None, "tp", None), B, S, H * dh) @ p["wo"]
         if mode in STATELESS:
@@ -496,7 +521,15 @@ def apply_attention(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, 
     # then attention over the eff_len valid rows (>= 1)
     slot = cache_len % window if window else cache_len
     eff_len = torch.clamp(cache_len + 1, max=window) if window else cache_len + 1
-    if cfg.kv_cache_dtype == "int8":
+    # the fused path writes the new rows of a model-dtype cache in its
+    # qk_rope launch; the int8 cache is quantized and written below
+    write = _fused(mode, x) and cfg.kv_cache_dtype != "int8"
+    q, k, v = _qkv(cfg, p, x, positions, mode=mode,
+                   cache=(state["k"], state["v"], slot) if write else None)
+    if write:
+        st = {"k": state["k"], "v": state["v"]}
+        k_full, v_full = st["k"], st["v"]
+    elif cfg.kv_cache_dtype == "int8":
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
         st = {"k": _scatter_time(state["k"], kq, slot),
@@ -583,23 +616,23 @@ def mla_init_state(cfg: ModelConfig, batch: int, max_len: int, device=None) -> P
             "kpe": torch.zeros((batch, max_len, cfg.rope_head_dim), dtype=dt, device=device)}
 
 
-def _mla_q(cfg: ModelConfig, p: Params, x, positions):
+def _mla_q(cfg: ModelConfig, p: Params, x, positions, mode):
     B, S, _ = x.shape
     H, rp, np_ = cfg.n_heads, cfg.rope_head_dim, cfg.nope_head_dim
     if cfg.q_lora_rank:
-        qa = rms_norm_headwise(x @ p["wq_a"], p["q_norm"])
+        qa = rms_norm_headwise(x @ p["wq_a"], p["q_norm"], mode=mode)
         q = (qa @ p["wq_b"]).reshape(B, S, H, np_ + rp)
     else:
         q = (x @ p["wq"]).reshape(B, S, H, np_ + rp)
     q_nope, q_pe = q[..., :np_], q[..., np_:]
-    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
+    return q_nope, apply_rope_ref(q_pe, positions, cfg.rope_theta)
 
 
-def _mla_kv_latent(cfg: ModelConfig, p: Params, x, positions):
+def _mla_kv_latent(cfg: ModelConfig, p: Params, x, positions, mode):
     r = cfg.kv_lora_rank
     kv = x @ p["wkv_a"]
-    ckv = rms_norm_headwise(kv[..., :r], p["kv_norm"])
-    kpe = apply_rope(kv[..., r:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    ckv = rms_norm_headwise(kv[..., :r], p["kv_norm"], mode=mode)
+    kpe = apply_rope_ref(kv[..., r:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     return ckv, kpe
 
 
@@ -609,8 +642,8 @@ def apply_mla(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *, mod
     B, S, _ = x.shape
     H = cfg.n_heads
     r, rp, np_, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
-    q_nope, q_pe = _mla_q(cfg, p, x, positions)
-    ckv, kpe = _mla_kv_latent(cfg, p, x, positions)
+    q_nope, q_pe = _mla_q(cfg, p, x, positions, mode)
+    ckv, kpe = _mla_kv_latent(cfg, p, x, positions, mode)
 
     if mode != "decode":
         # expand per-head K/V from the latent (standard prefill path)
@@ -648,12 +681,10 @@ def apply_mla(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *, mod
 # ---------------------------------------------------------------------------
 
 
-def gelu(x):
-    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
-
-
-def _act(cfg: ModelConfig, x):
-    return gelu(x) if cfg.act == "gelu" else F.silu(x)
+def _gated(mode: str, a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
+    """act(a) * b, ``kind`` "silu" or "gelu" (``cfg.act``): the ``glu``
+    kernel's wrapper in the serving modes, else the plain chain."""
+    return (glu if _fused(mode, a) else glu_ref)(a, b, kind=kind)
 
 
 def init_ffn(cfg: ModelConfig, seg: Segment, mk: Init) -> Params:
@@ -676,8 +707,8 @@ def apply_ffn(cfg: ModelConfig, seg: Segment, p: Params, x, *, mode: str, state=
     last input, (B, 1, d)), else None."""
     check_mode(mode)
     if seg.ffn in ("swiglu", "geglu"):
-        gate = _act(cfg, x @ p["w1"]) if seg.ffn == "swiglu" else gelu(x @ p["w1"])
-        h = constrain(gate * (x @ p["w3"]), "dp", None, "tp")
+        kind = "gelu" if seg.ffn == "geglu" else cfg.act
+        h = constrain(_gated(mode, x @ p["w1"], x @ p["w3"], kind), "dp", None, "tp")
         return constrain(h @ p["w2"], "dp", None, None), None
     if seg.ffn == "gelu_mlp":
         h = constrain(gelu(x @ p["w1"] + p["b1"]), "dp", None, "tp")
@@ -692,7 +723,7 @@ def apply_ffn(cfg: ModelConfig, seg: Segment, p: Params, x, *, mode: str, state=
         k = torch.square(torch.relu(xk @ p["wk"]))
         return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1:, :]
     if seg.ffn == "moe":
-        return apply_moe(cfg, p, x), None
+        return apply_moe(cfg, p, x, mode=mode), None
     raise ValueError(seg.ffn)
 
 
@@ -749,7 +780,8 @@ def moe_route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor):
     return gate_vals, expert_idx, slot, C
 
 
-def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+              mode: str = "forward") -> torch.Tensor:
     """Top-k MoE with capacity dispatch per token group.
 
     Tokens are viewed as (G, T/G), G = ``dp_total()`` (1 outside a mesh, or
@@ -765,12 +797,12 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     xt = x.reshape(B * S, d)
     gate_vals, slot, buf = _dispatch(cfg, p["router"], xt)
     h = buf.view(E, -1, d)
-    g = _act(cfg, torch.bmm(h, p["w1"])) * torch.bmm(h, p["w3"])
+    g = _gated(mode, torch.bmm(h, p["w1"]), torch.bmm(h, p["w3"]), cfg.act)
     y = torch.cat([torch.bmm(g, p["w2"]).reshape(-1, d), buf.new_zeros((1, d))])
     y_tok = y[slot].reshape(B * S, K, d)  # dropped choices read the zero row
     out = (y_tok * gate_vals[..., None].to(y.dtype)).sum(1)
     if cfg.n_shared_experts:
-        out = out + (_act(cfg, xt @ p["sw1"]) * (xt @ p["sw3"])) @ p["sw2"]
+        out = out + _gated(mode, xt @ p["sw1"], xt @ p["sw3"], cfg.act) @ p["sw2"]
     return out.reshape(B, S, d)
 
 
@@ -823,7 +855,7 @@ def _apply_moe_groups(cfg: ModelConfig, p: Params, x: DTensor) -> DTensor:
     buf = DTensor.from_local(torch.stack([r[2] for r in routed]), mesh, pl)  # (G, E*C, d)
     bufe = constrain(buf.reshape(G, E, C, d).transpose(0, 1), "tp", "dp", None, None)
     h = bufe.reshape(E, G * C, d)
-    g = _act(cfg, torch.bmm(h, p["w1"])) * torch.bmm(h, p["w3"])
+    g = glu_ref(torch.bmm(h, p["w1"]), torch.bmm(h, p["w3"]), kind=cfg.act)
     y = torch.bmm(g, p["w2"]).reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
     yl = constrain(y, "dp", None, None).to_local()
     outs = []
@@ -832,7 +864,7 @@ def _apply_moe_groups(cfg: ModelConfig, p: Params, x: DTensor) -> DTensor:
         outs.append((yg[slot].reshape(Tl, K, d) * gates[..., None].to(yg.dtype)).sum(1))
     out = DTensor.from_local(torch.stack(outs), mesh, pl)
     if cfg.n_shared_experts:
-        out = out + (_act(cfg, xt @ p["sw1"]) * (xt @ p["sw3"])) @ p["sw2"]
+        out = out + glu_ref(xt @ p["sw1"], xt @ p["sw3"], kind=cfg.act) @ p["sw2"]
     return constrain(out.reshape(B, S, d), "dp", None, None)
 
 

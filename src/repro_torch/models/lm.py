@@ -212,21 +212,21 @@ def _storage(t) -> tuple:
 
 def _apply_block(cfg, seg, p, x, *, mode, positions, state, cache_len, enc_out, max_len):
     st_in = state or {}
-    h = apply_norm(cfg, p["norm1"], x)
+    h = apply_norm(cfg, p["norm1"], x, mode=mode)
     mix_out, mix_st = _MIXER_APPLY[seg.mixer](
         cfg, seg, p["mixer"], h, mode=mode, positions=positions, state=st_in.get("mixer"),
         cache_len=cache_len, max_len=max_len)
-    x = x + mix_out
     new_state: dict = {}
     if mix_st is not None:
         new_state["mixer"] = mix_st
+    # each residual add is fused into the norm after it: (x + out, norm)
     if seg.cross_attn:
-        h = apply_norm(cfg, p["norm_x"], x)
+        x, h = apply_norm(cfg, p["norm_x"], x, mode=mode, delta=mix_out)
         enc_kv = st_in["enc_kv"] if mode == "decode" else encode_cross_kv(cfg, p["cross"], enc_out)
-        x = x + apply_cross_attention(cfg, p["cross"], h, enc_kv)
+        mix_out = apply_cross_attention(cfg, p["cross"], h, enc_kv)
         if mode not in STATELESS:
             new_state["enc_kv"] = enc_kv  # decode carries it through unchanged
-    h = apply_norm(cfg, p["norm2"], x)
+    x, h = apply_norm(cfg, p["norm2"], x, mode=mode, delta=mix_out)
     ffn_out, ffn_st = apply_ffn(cfg, seg, p["ffn"], h, state=st_in.get("ffn"), mode=mode)
     x = x + ffn_out
     if ffn_st is not None and mode not in STATELESS:
@@ -351,7 +351,7 @@ def _forward(cfg, params, tokens, *, mode, prefix_embeds=None, enc_embeds=None, 
         x, st = _run_segment(cfg, seg, sp, x, mode=mode, positions=positions, enc_out=enc_out,
                              max_len=max_len)
         states.append(st)
-    return apply_norm(cfg, params["final_norm"], x), states, n_prefix
+    return apply_norm(cfg, params["final_norm"], x, mode=mode), states, n_prefix
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +458,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, state: dic
     for seg, sp, st in zip(cfg.segments, params["segments"], state["segments"]):
         x, _ = _run_segment(cfg, seg, sp, x, mode="decode", positions=positions,
                             stacked_state=st, cache_len=cache_len)
-    h = apply_norm(cfg, params["final_norm"], x)
+    h = apply_norm(cfg, params["final_norm"], x, mode="decode")
     logits = (h[:, 0, :] @ _head_weights(cfg, params)).float()
     return logits, {"cache_len": cache_len + 1, "segments": state["segments"]}
 

@@ -35,7 +35,12 @@ Each ``step()`` copies the mask in and replays its graph; each later
 admission at a width copies the prompt and the slot in from pinned host
 memory and replays that width's graph.  These are the port's form of the
 JAX engine's ``jax.jit(_decode_impl, donate_argnums=(1,))`` and of its
-jitted ``_prefill`` with the donated ``_insert``.  The prefill graphs
+jitted ``_prefill`` with the donated ``_insert``; inside each graph the
+model body's norms, qk-norm + RoPE + cache write and gated activations are
+the fused kernels ``kernels.norm``, ``qk_rope`` and ``glu`` (the JAX jit's
+fusions).  A capture counts every kernel launch it records, and each
+replay adds those counts to the wrappers' (the replay itself runs no
+Python).  The prefill graphs
 share one memory pool: none of their results lives in it (the slab and
 the buffers are allocated outside every graph) and they never run at
 once.  A capture or replay that fails raises; the engine never carries
@@ -57,7 +62,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels import wrappers
 from repro_torch.models import lm
 from repro_torch.serving.sampler import SamplerConfig, sample
 from repro_torch.training.tree import leaves
@@ -93,6 +98,7 @@ class _PrefillBuffers:
     tokens_host: torch.Tensor
     slot_host: torch.Tensor
     graph: Optional[torch.cuda.CUDAGraph] = None
+    launches: dict = dataclasses.field(default_factory=dict)  # kernel launches a replay makes
 
 
 class GenerationEngine:
@@ -129,7 +135,8 @@ class GenerationEngine:
                                         pin_memory=dev.type == "cuda")
         self._active = self._active_host.numpy()
         self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._graph_launches = 0  # decode_attention launches a replay makes
+        self._graph_launches: dict[str, int] = {}  # kernel launches a replay makes, by name
+        self._kernels = wrappers()
         # the admission buffers of each padded width, with its graph once
         # captured; all prefill graphs allocate from one pool of their own
         self._prefills: dict[int, _PrefillBuffers] = {}
@@ -191,9 +198,10 @@ class GenerationEngine:
 
     def _capture(self, body, generator=None, pool=None):
         """Run ``body`` once eagerly on the capture stream (the warm-up: its
-        results are real), then capture it as one CUDA graph.  Returns the
-        graph and the ``decode_attention`` launches it recorded, which the
-        caller adds at each replay (the capture ran nothing)."""
+        results are real, and it builds what a capture cannot, such as
+        qk_rope's frequency table), then capture it as one CUDA graph.
+        Returns the graph and the launches it recorded of each kernel, which
+        ``_replay`` adds at each replay (the capture ran nothing)."""
         dev, side = self.device, self._stream
         with torch.cuda.device(dev):
             # the kernels' counters allow no concurrent launches: the side
@@ -205,7 +213,7 @@ class GenerationEngine:
             graph = torch.cuda.CUDAGraph()
             if generator is not None and self.sampler.temperature > 0.0:
                 graph.register_generator_state(generator)  # each replay draws anew
-            n0 = decode_attention.launches
+            n0 = {name: fn.launches for name, fn in self._kernels.items()}
             # a prefill is captured mid-serving: other threads (the wall-
             # clock ingress's) may call into CUDA, and a garbage collection
             # could destroy another engine's graph, which invalidates any
@@ -219,9 +227,16 @@ class GenerationEngine:
             finally:
                 if collecting:
                     gc.enable()
-            launches = decode_attention.launches - n0
-            decode_attention.launches = n0
+            launches = {name: fn.launches - n0[name] for name, fn in self._kernels.items()
+                        if fn.launches != n0[name]}
+            for name, fn in self._kernels.items():
+                fn.launches = n0[name]
         return graph, launches
+
+    def _replay(self, graph: torch.cuda.CUDAGraph, launches: dict) -> None:
+        graph.replay()
+        for name, n in launches.items():
+            self._kernels[name].launches += n
 
     def _admit(self, tokens: np.ndarray, slot: int) -> int:
         """Prefill the left-padded prompt ``tokens`` (pad_to,) into slab slot
@@ -234,9 +249,10 @@ class GenerationEngine:
         buf.tokens.copy_(buf.tokens_host, non_blocking=True)
         buf.slot.copy_(buf.slot_host, non_blocking=True)
         if buf.graph is not None:
-            buf.graph.replay()  # prefill launches no decode_attention
+            self._replay(buf.graph, buf.launches)
         elif self._capture_prefills:
-            buf.graph, _ = self._capture(lambda: self._prefill(buf), pool=self._prefill_pool)
+            buf.graph, buf.launches = self._capture(lambda: self._prefill(buf),
+                                                    pool=self._prefill_pool)
         else:
             self._prefill(buf)
         return int(buf.first.cpu()[0])  # waits for the device, as JAX's int(argmax)
@@ -281,8 +297,7 @@ class GenerationEngine:
             return {}
         self._active_dev.copy_(self._active_host, non_blocking=True)
         if self._graph is not None:
-            self._graph.replay()
-            decode_attention.launches += self._graph_launches
+            self._replay(self._graph, self._graph_launches)
         else:
             self._decode()
         out: dict[int, int] = {}

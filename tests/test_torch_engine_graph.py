@@ -170,7 +170,7 @@ def test_captured_stream_equals_eager_body(cuda, arch):
 @pytest.mark.cuda
 def test_replays_count_decode_attention_launches(cuda):
     cfg, _, eng = _card_engines("qwen3-1.7b", cuda)
-    assert eng._graph_launches == cfg.n_layers
+    assert eng._graph_launches["decode_attention"] == cfg.n_layers
     replays = []
     n0 = decode_attention.launches
 

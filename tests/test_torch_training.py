@@ -116,7 +116,11 @@ def test_adamw_update_matches_jax(dtype):
     params, grads, mu, nu = _opt_tree(np.random.default_rng(3), dtype)
     jdt = jnp.dtype(dtype)
     to_j = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jdt), t)  # noqa: E731
-    to_t = lambda t: jax.tree.map(lambda a: torch.from_numpy(a).to(getattr(torch, dtype)), t)  # noqa: E731
+    # copies: the port writes params in place, and for float32 ``.to`` would
+    # return the very tensor that views the numpy buffer the JAX arrays may
+    # alias while the dispatched jit still reads them
+    to_t = lambda t: jax.tree.map(  # noqa: E731
+        lambda a: torch.from_numpy(a.copy()).to(getattr(torch, dtype)), t)
     ocfg = dict(lr=2e-3, warmup_steps=4, total_steps=20)
     jst = {"mu": jax.tree.map(jnp.asarray, mu), "nu": jax.tree.map(jnp.asarray, nu),
            "step": jnp.asarray(3, jnp.int32)}
