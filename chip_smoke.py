@@ -83,11 +83,18 @@
    into phase 4's slab, eager and replayed, beside each width's floor (its
    bf16 GEMMs and f32 attention at their peaks, or its bytes), one of each
    under the profiler, and the prefill graphs' pool; the replays' device
-   time grouped by kernel name (top 15, with counts); the same step and
+   time grouped by kernel name (top 15 a step, 20 an admission, with
+   counts); the same step and
    admissions through a twin engine captured under the plain-on-card switch
-   (the plain chains: the model body before the fused kernels); the fused
-   kernels at the decode and prefill shapes beside their byte bounds, their
-   plain versions, ``F.rms_norm`` for the norm and one ``torch.sum``; then
+   (the plain chains: the model body before the fused kernels); in the
+   replayed step and admissions, the norm's launches and the bf16
+   elementwise adds (qwen3's step must run none: every residual add is a
+   norm's delta); the fused kernels at the decode and prefill shapes beside
+   their byte bounds, their plain versions, ``F.rms_norm`` for the norm and
+   one ``torch.sum``, and ``norm``, ``F.rms_norm`` and ``qk_rope`` three
+   ways more: (a) CUDA events around one call after the L2 flush, (b) the
+   profiler's device time of one call after the flush (and back to back
+   without it), (c) one of 57 calls in a captured graph; then
    qwen3-1.7b at full width and depth, 8 prompts x 32 tokens through the
    captured engine with the fused kernels and under the switch: the greedy
    streams must be equal, or differ first where the plain run's top-2 logit
@@ -377,6 +384,93 @@ def time_ms(torch, dev, fn, iters=20, warmup=3):
         pairs.append((t0, t1))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def profiled_ms(torch, fn, flush=None, calls=20):
+    """Device time of one ``fn()`` by ``torch.profiler``: the summed
+    durations of the device ops one call runs, averaged over ``calls``
+    calls.  With ``flush`` (a buffer) each call follows a write of it, as in
+    ``time_ms``, and that write's kernel is not counted.  None where the
+    profiler traced no device op (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def spans(body):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
+
+    alone = spans(fn)
+    if not alone:
+        return None
+    if flush is None:
+        def body():
+            for _ in range(calls):
+                fn()
+        got = spans(body)
+        return sum(b - a for a, b in got) / calls / 1e3
+    per_call = len(alone)
+
+    def body():
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+    got = spans(body)
+    need(len(got) == calls * (1 + per_call),
+         f"profiler: {len(got)} device ops for {calls} x (flush + {per_call})")
+    keep = [s for i, s in enumerate(got) if i % (1 + per_call)]  # each call's flush first
+    return sum(b - a for a, b in keep) / calls / 1e3
+
+
+def graph_ms(torch, fn, n=57, replays=10):
+    """Mean ms of one ``fn()`` among ``n`` back to back in one captured CUDA
+    graph (a replayed step runs each norm 57 times), replayed ``replays``
+    times with CUDA events around all of them; no flush, as in the step,
+    where each call's input is the previous kernel's output."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / (replays * n)
+    del g
+    torch.cuda.empty_cache()
+    return ms
+
+
+def three_ways(torch, dev, fn):
+    """(a) ``time_ms``: CUDA events around one call after the L2 flush;
+    (b) the profiler's device time of one call after the flush, and (b')
+    of one call back to back without it; (c) one of 57 calls in a
+    captured graph.  Returns a dict of the four, in ms."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    out = {"a": time_ms(torch, dev, fn, iters=50), "b": profiled_ms(torch, fn, flush),
+           "b_warm": profiled_ms(torch, fn), "c": graph_ms(torch, fn)}
+    del flush
+    return out
+
+
+def fmt_ways(w):
+    us = lambda ms: "not measured" if ms is None else f"{1e3 * ms:.2f} us"  # noqa: E731
+    return (f"(a) events after flush {us(w['a'])}, (b) profiler after flush {us(w['b'])}, "
+            f"(b') profiler back to back {us(w['b_warm'])}, (c) 1 of 57 in a graph {us(w['c'])}")
 
 
 def bound(n_bytes, n_ops, peak_ops):
@@ -737,27 +831,41 @@ def rand(torch, gen, shape, dtype, dev, scale=1.0, shift=0.0):
 def norm_cases(torch, dev):
     """kernels.norm against its plain version: RMSNorm and LayerNorm, with
     and without the residual add, at the main path's shapes (decode 8 x 2048,
-    prefill 1024 x 2048, bf16), the zoo's widths, odd row counts, f32, a
-    strided row (MLA's latent) and f32 parameters under bf16 activations;
-    the residual sum bit for bit; two calls on one input bit for bit."""
+    prefill 1024 x 2048, bf16) and at every family's width in bf16 and in
+    f32 (phase 11's dtype), over the kernel's three layouts: lane groups
+    (d_head-wide and MLA's 512-wide rows), one warp a row (up to 2,048 bf16
+    or 1,024 f32 values) and a few warps a row (recurrentgemma's 2,560,
+    phi3's 3,072, llama4's and stablelm's 5,120, qwen1.5's 8,192, and 16,384
+    to 32,768, the kernel's limit); odd row counts, a strided row (MLA's
+    latent) and f32 parameters under bf16 activations; the residual sum bit
+    for bit; two calls on one input bit for bit."""
     from repro_torch.kernels.norm import norm, norm_ref
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 30)
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [(8, 2048, bf, "rmsnorm"), (1024, 2048, bf, "rmsnorm"), (7, 3072, bf, "rmsnorm"),
-             (1, 8192, bf, "rmsnorm"), (9, 5120, bf, "layernorm"), (1023, 2048, bf, "layernorm"),
-             (8, 2048, f32, "rmsnorm"), (5, 1024, f32, "layernorm"), (3, 64, bf, "rmsnorm")]
+    rms, ln = "rmsnorm", "layernorm"
+    cases = [  # rows, d, activations' dtype, kind[, parameters' dtype]
+        (8, 2048, bf, rms), (1024, 2048, bf, rms), (1023, 2048, bf, ln),  # the main path
+        (37, 64, bf, rms), (29, 128, bf, rms), (9, 256, f32, rms), (13, 512, bf, rms),  # groups
+        (7, 1024, bf, ln), (5, 1024, f32, ln), (8, 2048, f32, rms), (1, 256, bf, rms),  # a warp
+        (7, 2560, bf, rms), (7, 3072, bf, rms), (9, 5120, bf, ln), (1, 8192, bf, rms),  # warps
+        (3, 2560, f32, rms), (3, 3072, f32, rms), (3, 5120, f32, ln), (3, 8192, f32, rms),
+        (2, 16384, f32, rms), (2, 32768, f32, ln), (2, 32768, bf, rms),
+        (4, 2048, bf, ln, f32), (3, 64, f32, rms, bf)]  # parameters of the other dtype
     errs = []
-    for rows, d, dt, kind in cases:
+    for rows, d, dt, kind, *pdt in cases:
+        pdt = pdt[0] if pdt else dt
         x, delta = rand(torch, gen, (rows, d), dt, dev), rand(torch, gen, (rows, d), dt, dev)
-        scale = rand(torch, gen, (d,), dt, dev, 0.1, 1.0)
-        bias = rand(torch, gen, (d,), dt, dev, 0.1) if kind == "layernorm" else None
+        scale = rand(torch, gen, (d,), pdt, dev, 0.1, 1.0)
+        bias = rand(torch, gen, (d,), pdt, dev, 0.1) if kind == "layernorm" else None
         for residual in (False, True):
             kw = dict(kind=kind, eps=1e-6, delta=delta if residual else None)
             got, want = norm(x, scale, bias, **kw), norm_ref(x, scale, bias, **kw)
             torch.cuda.synchronize()
-            what = f"norm {kind} {rows}x{d} {str(dt)[6:]}{' + residual' if residual else ''}"
+            what = (f"norm {kind} {rows}x{d} {str(dt)[6:]}"
+                    f"{'' if pdt == dt else f' ({str(pdt)[6:]} parameters)'}"
+                    f"{' + residual' if residual else ''}")
             if residual:
                 need(bits_equal(torch, got[0], want[0]), f"{what}: the residual sum differs")
                 got, want = got[1], want[1]
@@ -775,16 +883,22 @@ def norm_cases(torch, dev):
     return max(errs)
 
 
-def check_qk_rope_case(torch, gen, dev, B, S, H, KV, dh, dt, what, cache=None):
+def check_qk_rope_case(torch, gen, dev, B, S, H, KV, dh, dt, what, cache=None,
+                       unaligned=False):
     """One qk_rope input through the kernel and the plain version: RoPE
     alone bit for bit; the qk-norm alone within its tolerance; qk-norm +
     RoPE equal to the plain RoPE of the kernel's own qk-norm output, bit for
     bit; with ``cache`` = (rows, cache_len, window) the decode write too,
-    equal to the plain write of the kernel's own k.  Returns the qk-norm's
-    largest error."""
+    equal to the plain write of the kernel's own k.  ``unaligned``: q and k
+    start one element past a 16-byte boundary (the kernel's scalar
+    accesses).  Returns the qk-norm's largest error."""
     from repro_torch.kernels.qk_rope import apply_rope_ref, qk_rope, qk_rope_ref, scatter_time_ref
 
-    q, k = rand(torch, gen, (B, S, H, dh), dt, dev), rand(torch, gen, (B, S, KV, dh), dt, dev)
+    def heads(n):
+        t = rand(torch, gen, (B * S * n * dh + 1,), dt, dev)
+        return t[int(unaligned):][:B * S * n * dh].view(B, S, n, dh)
+
+    q, k = heads(H), heads(KV)
     qs, ks = rand(torch, gen, (dh,), dt, dev, 0.1, 1.0), rand(torch, gen, (dh,), dt, dev, 0.1, 1.0)
     if cache is None:
         pos = torch.arange(S, device=dev)[None].expand(B, S)  # int64, the prefill's
@@ -825,7 +939,9 @@ def qk_rope_cases(torch, dev):
     """kernels.qk_rope against its plain version at the main path's decode
     and prefill shapes (qwen3-1.7b, bf16), d_head 64 / 96 / 128 / 160 / 256,
     odd token counts, f32, a ring slot, position 0 and a position past the
-    cache's end (clamped to the last row)."""
+    cache's end (clamped to the last row); the kernel's scalar accesses (d_head
+    100, whose halves are no whole number of 16-byte vectors, and heads one
+    element off a 16-byte boundary); phi3's prefill (32 + 32 heads of 96)."""
     from repro_torch.kernels.qk_rope import qk_rope
 
     gen = torch.Generator(device=dev)
@@ -848,6 +964,17 @@ def qk_rope_cases(torch, dev):
     errs.append(check_qk_rope_case(torch, gen, dev, 4, 1, 10, 1, 256, bf,
                                    "qk_rope ring dh=256 bf16",
                                    (2048, torch.tensor([5, 2047, 2048, 4101], **i32), 2048)))
+    # the scalar accesses: halves that are no whole number of vectors, and
+    # unaligned heads; and the prefill's token count at phi3's 32 + 32 heads
+    for dt in (bf, f32):
+        errs.append(check_qk_rope_case(torch, gen, dev, 3, 1, 5, 3, 100, dt,
+                                       f"qk_rope decode dh=100 {str(dt)[6:]}",
+                                       (64, torch.tensor([0, 63, 64], **i32), 0)))
+        errs.append(check_qk_rope_case(torch, gen, dev, 2, 9, 4, 2, 128, dt,
+                                       f"qk_rope S=9 dh=128 unaligned {str(dt)[6:]}",
+                                       unaligned=True))
+    errs.append(check_qk_rope_case(torch, gen, dev, 1, 1024, 32, 32, 96, bf,
+                                   "qk_rope prefill (1,1024,32|32,96) bf16"))
     q, k = rand(torch, gen, (8, 1, 16, 128), bf, dev), rand(torch, gen, (8, 1, 8, 128), bf, dev)
     s = rand(torch, gen, (128,), bf, dev, 0.1, 1.0)
     pos = lens[:, None]
@@ -972,6 +1099,10 @@ def time_fused(torch, dev):
                 f" {n_bytes} bytes, {n_ops} f32 ops; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library {lib_txt}, bound {b_ms:.4f} ms ({b_by}); one torch.sum over as many "
                 f"bytes {floor:.4f} ms")
+            if name != "glu":  # the three measures of a launch (PERF.md section 5)
+                log(f"    {name} {label} kernel: {fmt_ways(three_ways(torch, dev, kern))}")
+                if lib is not None:
+                    log(f"    {name} {label} F.rms_norm: {fmt_ways(three_ways(torch, dev, lib))}")
             if label == "decode" and name in ("norm", "qk_rope", "glu"):
                 out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                              "library_ms": lib_ms}
@@ -2821,18 +2952,25 @@ def profile_once(torch, fn, n_top=3):
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.end - e.time_range.start, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
-    return len(spans), busy / 1e3, wall, [(n[:60], round(us / 1e3, 4), c) for n, (us, c) in top]
+    return (len(spans), busy / 1e3, wall, [(n[:60], round(us / 1e3, 4), c) for n, (us, c) in top],
+            {n: c for n, (_, c) in by_name.items()})
+
+
+# ATen's bf16 elementwise add (tensor + tensor, or with a scalar): in
+# qwen3's decode step only a residual add, all of which the norm now takes
+BF16_ADD = "add<c10::BFloat16>"
 
 
 def log_profile(torch, what, fn, n_top=3):
     """Print ``profile_once`` of ``fn``: device ops, busy and wall time, the
     costliest kernel names (ms summed over the call, launches); with
-    ``n_top`` > 3 one line a name."""
-    n_ops, busy, wall, top = profile_once(torch, fn, n_top)
+    ``n_top`` > 3 one line a name.  Returns the launches by kernel name
+    (None where the profiler traced no device op)."""
+    n_ops, busy, wall, top, counts = profile_once(torch, fn, n_top)
     if n_ops == 0:
         log(f"  profiler, one {what}: no device activity traced (not measured); "
             f"wall {wall:.3f} ms")
-        return
+        return None
     head = (f"  profiler, one {what}: {n_ops} device ops, device busy {busy:.3f} ms of "
             f"{wall:.3f} ms wall ({100 * busy / wall:.1f}%)")
     if n_top <= 3:
@@ -2841,6 +2979,12 @@ def log_profile(torch, what, fn, n_top=3):
     log(f"{head}; device time by kernel name, top {n_top} (ms, launches):")
     for name, ms, count in top:
         log(f"    {ms:9.4f} ms {count:6d}x  {name}")
+    return counts
+
+
+def launches_named(counts, part) -> int:
+    """Launches of the kernels whose name holds ``part``."""
+    return sum(c for name, c in counts.items() if part in name)
 
 
 def time_decode_step(torch, dev, engine, what, eager_iters=5):
@@ -2858,8 +3002,11 @@ def time_decode_step(torch, dev, engine, what, eager_iters=5):
         f"{replay:.3f} ms ({eager / replay:.1f}x); byte floor {floor_ms:.3f} ms ({n_bytes} bytes "
         f"at {HBM_BYTES_PER_S / 1e12} TB/s; the replay at {100 * floor_ms / replay:.1f}% of it)")
     for name, fn in (("eager", engine._decode), ("replay", engine._graph.replay)):
-        log_profile(torch, f"{name} step", fn, n_top=15 if name == "replay" else 3)
-    return eager, replay
+        counts = log_profile(torch, f"{name} step", fn, n_top=15 if name == "replay" else 3)
+    if counts is not None:
+        log(f"  {what} replayed step: {launches_named(counts, 'norm_kernel')} norm launches, "
+            f"{launches_named(counts, BF16_ADD)} bf16 elementwise adds")
+    return eager, replay, counts
 
 
 def prefill_graphs(engine) -> list:
@@ -2934,8 +3081,11 @@ def time_prefill(torch, dev, engine, what, widths, eager_iters=3):
             f"TFLOP/s, {n_bytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s; the replay at "
             f"{100 * floor_ms / replay:.1f}% of it)")
         for name, fn in (("eager", body), ("replay", buf.graph.replay)):
-            log_profile(torch, f"{name} prefill at width {width}", fn,
-                        n_top=15 if name == "replay" else 3)
+            counts = log_profile(torch, f"{name} prefill at width {width}", fn,
+                                 n_top=20 if name == "replay" else 3)
+        if counts is not None:
+            log(f"  {what} replayed admission at {width}: {launches_named(counts, 'norm_kernel')} "
+                f"norm launches, {launches_named(counts, BF16_ADD)} bf16 elementwise adds")
     log(f"  {what} prefill graphs' pool: {pool_bytes(torch, engine._prefill_pool)} bytes for "
         f"widths {prefill_graphs(engine)}; memory_reserved {torch.cuda.memory_reserved()} bytes")
 
@@ -3004,7 +3154,7 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
         f"(max |SDPA - plain| {lib_err:.3e}), bound {attn_bound:.4f} ms ({attn_by}); one "
         f"torch.sum over as many bytes {read_floor_ms(torch, dev, attn_bytes):.4f} ms")
     # the decode step those launches sit in: all layers at the same state
-    eager_ms, replay_ms = time_decode_step(torch, dev, engine, ARCH)
+    eager_ms, replay_ms, counts = time_decode_step(torch, dev, engine, ARCH)
     n_layers = engine.cfg.n_layers
     log(f"  its {n_layers} decode_attention launches: {n_layers * attn_ms:.3f} ms, "
         f"{100 * n_layers * attn_ms / eager_ms:.1f}% of the eager step, "
@@ -3017,8 +3167,17 @@ def time_kernels(torch, dev, ivf_in, attn_in, engine, merge_in, fixed_ivf):
 
     twin = plain_chain_twin(torch, dev, engine)
     with plain_on_card():
-        time_decode_step(torch, dev, twin, f"{ARCH} plain chains")
+        twin_counts = time_decode_step(torch, dev, twin, f"{ARCH} plain chains")[2]
         time_prefill(torch, dev, twin, f"{ARCH} plain chains", PREFILL_WIDTHS)
+    # every residual add of qwen3's step is a norm's delta: none runs alone.
+    # The count is read from the profiler by ATen's kernel name, so the
+    # plain chains' step must show its residual adds under that name too
+    need(counts is not None and twin_counts is not None,
+         "the profiler traced no device op of a replayed decode step: its adds are not counted")
+    need(launches_named(twin_counts, BF16_ADD) > 0,
+         f"no {BF16_ADD!r} kernel in the plain chains' step: the name no longer finds the adds")
+    need(launches_named(counts, BF16_ADD) == 0,
+         f"{ARCH}'s replayed decode step runs a residual add outside the norm")
     del twin
     free(torch, dev)
     fused = time_fused(torch, dev)

@@ -67,18 +67,54 @@ template <> __device__ __forceinline__ uint4 pack16<__nv_bfloat16>(const float* 
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Sum of v over the block (blockDim.x a multiple of 32, at most 1024),
-// returned in every thread.  `red` is 32 floats of shared memory.  The
-// order of the additions is fixed by the thread layout, so two launches
-// on one input give the same bits.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read by an earlier call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  return warp_sum(lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0.f);
-}
+// N values of type E (f32 or bf16) held raw as 32-bit words, loaded and
+// stored as one vector (8 or 16 bytes) or two 16-byte vectors (32 bytes):
+// 16 bytes of a row, or the matching parameters of another dtype.  The
+// address must be aligned to the vector (8 or 16 bytes).
+template <typename E, int N> struct Raw {
+  static constexpr int W = N * static_cast<int>(sizeof(E)) / 4;
+  static_assert(W == 2 || W == 4 || W == 8, "8, 16 or 32 bytes");
+  unsigned w[W];
+
+  __device__ __forceinline__ void load(const E* p) {
+    if constexpr (W == 2) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = v.x; w[1] = v.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < W; i += 4) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i / 4);
+        w[i] = v.x; w[i + 1] = v.y; w[i + 2] = v.z; w[i + 3] = v.w;
+      }
+    }
+  }
+  __device__ __forceinline__ void store(E* p) const {
+    if constexpr (W == 2) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < W; i += 4)
+        reinterpret_cast<uint4*>(p)[i / 4] = make_uint4(w[i], w[i + 1], w[i + 2], w[i + 3]);
+    }
+  }
+  // value j widened to f32 (a bf16 is the high half of the f32 with its bits)
+  __device__ __forceinline__ float get(int j) const {
+    if constexpr (sizeof(E) == 4) return __uint_as_float(w[j]);
+    else return __uint_as_float(j & 1 ? w[j >> 1] & 0xffff0000u : w[j >> 1] << 16);
+  }
+  // the N values f, each rounded to E (round to nearest even)
+  __device__ __forceinline__ void set(const float* f) {
+    if constexpr (sizeof(E) == 4) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) w[j] = __float_as_uint(f[j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        w[i] = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(f[2 * i]))) |
+               (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(f[2 * i + 1]))) << 16);
+    }
+  }
+};
 
 // Cross-block combine of a split grid.  Every thread of a block calls this
 // after writing the block's partial result; it returns true, in every

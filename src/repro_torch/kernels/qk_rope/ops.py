@@ -32,18 +32,21 @@ from repro_torch.kernels.qk_rope.ref import qk_rope_ref, rope_frequencies
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _tables: dict[tuple[int, float, torch.device], torch.Tensor] = {}
+_lib = None  # (qk_rope_launch, qk_rope_max_dh()), bound once
 
 
-def _lib():
-    lib = _build.load("qk_rope")
-    fn = lib.qk_rope_launch
-    if fn.argtypes is None:
+def _launcher():
+    global _lib
+    if _lib is None:
+        lib = _build.load("qk_rope")
+        fn = lib.qk_rope_launch
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.qk_rope_max_dh.restype = ctypes.c_int
-    return lib
+        _lib = (fn, lib.qk_rope_max_dh())
+    return _lib
 
 
 def frequency_table(d: int, theta: float, device: torch.device) -> torch.Tensor:
@@ -112,13 +115,17 @@ def _launch(q, k, positions, theta, q_scale, k_scale, v, k_cache, v_cache, slot,
         raise TypeError("qk_rope takes f32 or bf16 activations and scales")
     B, S, H, dh = q.shape
     KV = k.shape[2]
-    lib = _lib()
-    if dh > lib.qk_rope_max_dh():
-        raise ValueError(f"the CUDA qk_rope needs dh <= {lib.qk_rope_max_dh()}, got {dh}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("q_scale", q_scale), ("k_scale", k_scale),
-                    ("k_cache", k_cache), ("v_cache", v_cache), ("slot", slot)):
+    launch, max_dh = _launcher()
+    if dh > max_dh:
+        raise ValueError(f"the CUDA qk_rope needs dh <= {max_dh}, got {dh}")
+    tensors = (("q", q), ("k", k), ("v", v), ("q_scale", q_scale), ("k_scale", k_scale),
+               ("k_cache", k_cache), ("v_cache", v_cache), ("slot", slot))
+    for name, t in tensors:
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    # 16-byte accesses where every head's halves are whole vectors
+    vec = (dh // 2) % (16 // q.element_size()) == 0 and all(
+        t is None or t.data_ptr() % 16 == 0 for _, t in tensors[:7])
     if slot is not None and slot.dtype != torch.int32:
         raise TypeError("slot must be int32")
     transform = theta is not None or q_scale is not None
@@ -132,13 +139,13 @@ def _launch(q, k, positions, theta, q_scale, k_scale, v, k_cache, v_cache, slot,
     k_out = torch.empty_like(k) if transform else k
     if B * S:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        rc = lib.qk_rope_launch(
+        rc = launch(
             q.data_ptr(), k.data_ptr(), ptr(v), ptr(q_out) if transform else None,
             ptr(k_out) if transform else None, ptr(q_scale), ptr(k_scale), ptr(freqs),
             ptr(positions) if theta is not None else None, pos64, psb, pss, ptr(k_cache),
             ptr(v_cache), ptr(slot), 0 if k_cache is None else k_cache.shape[1], B, S, H, KV, dh,
             eps, int(q.dtype == torch.bfloat16),
-            int(q_scale is not None and q_scale.dtype == torch.bfloat16),
+            int(q_scale is not None and q_scale.dtype == torch.bfloat16), int(vec),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "qk_rope")
         qk_rope.launches += 1

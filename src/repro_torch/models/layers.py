@@ -17,7 +17,9 @@ Conventions (as in the JAX package's ``models/layers.py``)
     mode='decode'   one new token per sequence, consumes + returns state
 * The serving modes ('prefill', 'decode') run the model body's elementwise
   chains through the fused Hopper kernels ``kernels.norm`` (the norms, and
-  the residual add before a block's second norm), ``kernels.qk_rope``
+  the residual adds before them: the mixer's before a block's second norm,
+  the FFN's before the next block's first norm or the final norm, which
+  ``lm`` hands on as the norm's delta), ``kernels.qk_rope``
   (qk-norm, RoPE and decode's K/V cache write) and ``kernels.glu`` (the
   gated activation), whose wrappers take their plain versions on CPU
   tensors.  'train' (the kernels have no backward), 'forward' (the
@@ -494,14 +496,30 @@ def _sharded_decode(q, k_cache: DTensor, v_cache: DTensor, lengths) -> DTensor:
     return DTensor.from_local(out.reshape(Bl, 1, Hl, dh), mesh, q_pl)
 
 
+def attention_window(cfg: ModelConfig, seg: Segment) -> int:
+    """A segment's attention window: ``local_window`` for ``local_attn``,
+    else 0 (the whole sequence)."""
+    return cfg.local_window if seg.mixer == "local_attn" else 0
+
+
+def _need_eff_len(eff_len):
+    if eff_len is None:
+        raise ValueError("decode needs eff_len, the step's int32 attention lengths "
+                         "(lm.decode_step computes them once for every layer)")
+    return eff_len
+
+
 def apply_attention(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *,
                     mode: str, positions: torch.Tensor, state: Optional[Params] = None,
-                    cache_len: Optional[torch.Tensor] = None, max_len: int = 0):
-    """Returns (out, new_state).  In decode mode ``state`` is updated in place."""
+                    cache_len: Optional[torch.Tensor] = None, max_len: int = 0, eff_len=None):
+    """Returns (out, new_state).  In decode mode ``state`` is updated in place
+    and ``eff_len`` is required: the step's int32 attention lengths for
+    this layer's window, which ``lm.decode_step`` computes once for every
+    layer."""
     check_mode(mode)
     B, S, _ = x.shape
     H, dh = cfg.n_heads, cfg.d_head
-    window = cfg.local_window if seg.mixer == "local_attn" else 0
+    window = attention_window(cfg, seg)
     causal = seg.mixer != "encoder_attn"
     if mode != "decode":
         q, k, v = _qkv(cfg, p, x, positions, mode=mode)
@@ -520,7 +538,7 @@ def apply_attention(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, 
     # decode: S == 1; the new row goes to slot cache_len (ring: % window),
     # then attention over the eff_len valid rows (>= 1)
     slot = cache_len % window if window else cache_len
-    eff_len = torch.clamp(cache_len + 1, max=window) if window else cache_len + 1
+    eff_len = _need_eff_len(eff_len)
     # the fused path writes the new rows of a model-dtype cache in its
     # qk_rope launch; the int8 cache is quantized and written below
     write = _fused(mode, x) and cfg.kv_cache_dtype != "int8"
@@ -546,7 +564,7 @@ def apply_attention(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, 
         # matmul would broadcast wo over the batch instead (a bmm)
         out = merge_heads(_sharded_decode(q, k_full, v_full, eff_len), B * S, H * dh)
         return (out @ p["wo"]).reshape(B, S, -1), st
-    out = decode_attention(q.reshape(B, H, dh), k_full, v_full, eff_len.to(torch.int32))
+    out = decode_attention(q.reshape(B, H, dh), k_full, v_full, eff_len)
     return out.reshape(B, S, H * dh) @ p["wo"], st
 
 
@@ -637,7 +655,7 @@ def _mla_kv_latent(cfg: ModelConfig, p: Params, x, positions, mode):
 
 
 def apply_mla(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *, mode: str,
-              positions, state=None, cache_len=None, max_len: int = 0):
+              positions, state=None, cache_len=None, max_len: int = 0, eff_len=None):
     check_mode(mode)
     B, S, _ = x.shape
     H = cfg.n_heads
@@ -667,7 +685,8 @@ def apply_mla(cfg: ModelConfig, seg: Segment, p: Params, x: torch.Tensor, *, mod
     scores = torch.einsum("bshr,btr->bhst", q_lat, ckv_f)
     scores = scores + torch.einsum("bshp,btp->bhst", q_pe.float(), kpe_c.float())
     scores = scores * (1.0 / math.sqrt(np_ + rp))
-    valid = torch.arange(ckv_c.shape[1], device=x.device)[None, :] < (cache_len + 1)[:, None]
+    valid = torch.arange(ckv_c.shape[1], device=x.device)[None, :] < (
+        _need_eff_len(eff_len)[:, None])
     scores = torch.where(valid[:, None, None, :], scores, -1e30)
     pattn = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bhst,btr->bshr", pattn, ckv_f)  # latent context

@@ -57,12 +57,14 @@ from repro_torch.models import rglru, rwkv6
 from repro_torch.models.layers import (
     STATELESS,
     Init,
+    _fused,
     apply_attention,
     apply_cross_attention,
     apply_ffn,
     apply_mla,
     apply_norm,
     attention_init_state,
+    attention_window,
     dtype_of,
     encode_cross_kv,
     ffn_init_state,
@@ -210,12 +212,24 @@ def _storage(t) -> tuple:
     return t.untyped_storage()._cdata, t.storage_offset()
 
 
-def _apply_block(cfg, seg, p, x, *, mode, positions, state, cache_len, enc_out, max_len):
+def _apply_block(cfg, seg, p, x, *, mode, positions, state, cache_len, enc_out, max_len,
+                 pending=None, lengths=None):
+    """One block of x.  Returns (x, the FFN output still to add, the new
+    state).  The serving modes on plain tensors leave the FFN's residual
+    add to the norm after it (the next block's ``norm1``, or the final
+    norm), which takes it as its delta: one fused launch for the add and
+    the norm.  There ``pending`` is the previous block's FFN output.  The
+    other modes add it here and return None.  ``lengths``: decode's
+    attention lengths by window (``_decode_lengths``)."""
     st_in = state or {}
-    h = apply_norm(cfg, p["norm1"], x, mode=mode)
+    if pending is None:
+        h = apply_norm(cfg, p["norm1"], x, mode=mode)
+    else:
+        x, h = apply_norm(cfg, p["norm1"], x, mode=mode, delta=pending)
     mix_out, mix_st = _MIXER_APPLY[seg.mixer](
         cfg, seg, p["mixer"], h, mode=mode, positions=positions, state=st_in.get("mixer"),
-        cache_len=cache_len, max_len=max_len)
+        cache_len=cache_len, max_len=max_len,
+        eff_len=None if lengths is None else lengths.get(attention_window(cfg, seg)))
     new_state: dict = {}
     if mix_st is not None:
         new_state["mixer"] = mix_st
@@ -228,18 +242,21 @@ def _apply_block(cfg, seg, p, x, *, mode, positions, state, cache_len, enc_out, 
             new_state["enc_kv"] = enc_kv  # decode carries it through unchanged
     x, h = apply_norm(cfg, p["norm2"], x, mode=mode, delta=mix_out)
     ffn_out, ffn_st = apply_ffn(cfg, seg, p["ffn"], h, state=st_in.get("ffn"), mode=mode)
-    x = x + ffn_out
     if ffn_st is not None and mode not in STATELESS:
         new_state["ffn"] = ffn_st
-    return x, new_state
+    if _fused(mode, x):
+        return x, ffn_out, new_state
+    return x + ffn_out, None, new_state
 
 
 def _run_segment(cfg, seg, sp, x, *, mode, positions, stacked_state=None, cache_len=None,
-                 enc_out=None, max_len=0):
-    """A segment's layers in order.  Returns (x, stacked state or None):
-    prefill stacks every layer's state; decode writes it into
-    ``stacked_state``; train keeps none and, with ``cfg.remat``, runs each
-    layer under a checkpoint (its activations recomputed in backward)."""
+                 enc_out=None, max_len=0, pending=None, lengths=None):
+    """A segment's layers in order.  Returns (x, the last FFN output still
+    to add or None, stacked state or None): prefill stacks every layer's
+    state; decode writes it into ``stacked_state``; train keeps none and,
+    with ``cfg.remat``, runs each layer under a checkpoint (its activations
+    recomputed in backward).  ``pending``: the FFN output the previous
+    segment left to add."""
     if mode == "train":
         def body(lp, h):
             return _apply_block(cfg, seg, _traversal(lp), h, mode=mode, positions=positions,
@@ -248,19 +265,37 @@ def _run_segment(cfg, seg, sp, x, *, mode, positions, stacked_state=None, cache_
 
         for lp in _unbind(sp, seg.repeat):
             x = checkpoint(body, lp, x, use_reentrant=False) if cfg.remat else body(lp, x)
-        return x, None
+        return x, None, None
     states = []
     for i in range(seg.repeat):
         st = None if stacked_state is None else _layer(stacked_state, i)
         lp = _traversal(_layer(sp, i))
-        x, new = _apply_block(cfg, seg, lp, x, mode=mode, positions=positions, state=st,
-                              cache_len=cache_len, enc_out=enc_out, max_len=max_len)
+        x, pending, new = _apply_block(cfg, seg, lp, x, mode=mode, positions=positions, state=st,
+                                       cache_len=cache_len, enc_out=enc_out, max_len=max_len,
+                                       pending=pending, lengths=lengths)
         if mode == "decode":
             _write_back(stacked_state, i, new)
         states.append(new)
     if mode == "prefill":
-        return x, _stack(states)
-    return x, stacked_state
+        return x, pending, _stack(states)
+    return x, pending, stacked_state
+
+
+def _final_norm(cfg, p, x, pending, mode):
+    """The final norm of x, adding the last block's FFN output first."""
+    if pending is None:
+        return apply_norm(cfg, p, x, mode=mode)
+    return apply_norm(cfg, p, x, mode=mode, delta=pending)[1]
+
+
+def _decode_lengths(cfg, cache_len) -> dict:
+    """Each attention window's int32 attention length of a decode step
+    (cache_len + 1, clamped to a ring's window), once a step for every
+    layer: {window (0: the whole cache): lengths (B,)}."""
+    windows = {attention_window(cfg, seg)
+               for seg in cfg.segments if seg.mixer in ("attn", "local_attn", "mla")}
+    return {w: (torch.clamp(cache_len + 1, max=w) if w else cache_len + 1).to(torch.int32)
+            for w in sorted(windows)}
 
 
 # ---------------------------------------------------------------------------
@@ -326,9 +361,10 @@ def _encoder_forward(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor,
     x = enc_embeds.to(dtype_of(cfg))
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     x = x + sinusoidal_embedding(pos, cfg.d_model).to(x.dtype)
+    pending = None
     for seg, sp in zip(cfg.encoder_segments, params["encoder"]["segments"]):
-        x, _ = _run_segment(cfg, seg, sp, x, mode=mode, positions=pos)
-    return apply_norm(cfg, params["encoder"]["final_norm"], x)
+        x, pending, _ = _run_segment(cfg, seg, sp, x, mode=mode, positions=pos, pending=pending)
+    return _final_norm(cfg, params["encoder"]["final_norm"], x, pending, "forward")
 
 
 def _forward(cfg, params, tokens, *, mode, prefix_embeds=None, enc_embeds=None, max_len=0):
@@ -346,12 +382,12 @@ def _forward(cfg, params, tokens, *, mode, prefix_embeds=None, enc_embeds=None, 
     enc_mode = "train" if mode == "train" else "forward"
     enc_out = (_encoder_forward(cfg, params, enc_embeds, enc_mode) if cfg.is_encoder_decoder
                else None)
-    states = []
+    states, pending = [], None
     for seg, sp in zip(cfg.segments, params["segments"]):
-        x, st = _run_segment(cfg, seg, sp, x, mode=mode, positions=positions, enc_out=enc_out,
-                             max_len=max_len)
+        x, pending, st = _run_segment(cfg, seg, sp, x, mode=mode, positions=positions,
+                                      enc_out=enc_out, max_len=max_len, pending=pending)
         states.append(st)
-    return apply_norm(cfg, params["final_norm"], x, mode=mode), states, n_prefix
+    return _final_norm(cfg, params["final_norm"], x, pending, mode), states, n_prefix
 
 
 # ---------------------------------------------------------------------------
@@ -455,10 +491,12 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, state: dic
     positions = cache_len[:, None]
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+    lengths, pending = _decode_lengths(cfg, cache_len), None
     for seg, sp, st in zip(cfg.segments, params["segments"], state["segments"]):
-        x, _ = _run_segment(cfg, seg, sp, x, mode="decode", positions=positions,
-                            stacked_state=st, cache_len=cache_len)
-    h = apply_norm(cfg, params["final_norm"], x, mode="decode")
+        x, pending, _ = _run_segment(cfg, seg, sp, x, mode="decode", positions=positions,
+                                     stacked_state=st, cache_len=cache_len, pending=pending,
+                                     lengths=lengths)
+    h = _final_norm(cfg, params["final_norm"], x, pending, "decode")
     logits = (h[:, 0, :] @ _head_weights(cfg, params)).float()
     return logits, {"cache_len": cache_len + 1, "segments": state["segments"]}
 

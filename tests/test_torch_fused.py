@@ -351,10 +351,15 @@ def test_wrappers_check_their_inputs():
 
 
 @needs_jax
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-lite-16b", "recurrentgemma-2b",
+                                  "whisper-medium"])
 def test_greedy_streams_equal_jax_through_the_ops(arch):
     """The engine's greedy streams over reduced configs, through the ops'
-    plain versions on the CPU, equal the JAX engine's."""
+    plain versions on the CPU, equal the JAX engine's.  recurrentgemma's
+    segments end with an FFN output that the next segment's first norm
+    adds; whisper, which the engine refuses (encoder-decoder), decodes
+    greedily through ``lm.greedy`` against JAX's prefill and decode steps,
+    its encoder and cross-attention included."""
     from repro.configs import get_config as jax_get_config
     from repro.models import lm as jax_lm
     from repro.serving.engine import GenerationEngine as JaxEngine
@@ -364,12 +369,74 @@ def test_greedy_streams_equal_jax_through_the_ops(arch):
     jparams = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
     rng = np.random.default_rng(7)
-    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 17, 33, 9)]
-    kw = dict(max_batch=2, max_len=64, eos_id=-1)
+    used = {"norm"}  # the ops this family calls (MLA's RoPE stays plain)
+    if {s.mixer for s in cfg.segments} & {"attn", "local_attn"}:
+        used.add("qk_rope")
+    if {s.ffn for s in cfg.segments} & {"swiglu", "geglu", "moe"}:
+        used.add("glu")
     p0 = _plain_calls()
+    if cfg.is_encoder_decoder:
+        tokens = rng.integers(1, cfg.vocab_size, size=(2, 9)).astype(np.int32)
+        enc = rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        got = lm.greedy(params, cfg, torch.from_numpy(tokens), max_len=32, steps=6,
+                        enc_embeds=torch.from_numpy(enc)).numpy()
+        logits, state = jax_lm.prefill(jparams, jcfg, jnp.asarray(tokens), max_len=32,
+                                       enc_embeds=jnp.asarray(enc))
+        want = []
+        for _ in range(6):
+            nxt = jnp.argmax(logits, -1).astype(jnp.int32)
+            want.append(np.asarray(nxt))
+            logits, state = jax_lm.decode_step(jparams, jcfg, nxt, state)
+        assert all(_plain_calls()[n] > p0[n] for n in used)
+        assert np.array_equal(got, np.stack(want, 1))
+        return
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 17, 33, 9)]
+    # recurrentgemma: padded widths that are multiples of its 16-row ring
+    # (the JAX package's ring prefill is wrong at other lengths; ROADMAP C)
+    kw = dict(max_batch=2, max_len=96 if cfg.local_window else 64, eos_id=-1)
     got = _serve(GenerationEngine(cfg, params, device="cpu", **kw), prompts)
-    assert all(_plain_calls()[n] > p0[n] for n in FUSED if n != "qk_rope" or not cfg.kv_lora_rank)
+    assert all(_plain_calls()[n] > p0[n] for n in used)
     assert got == _serve(JaxEngine(jcfg, jparams, **kw), prompts)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-lite-16b", "recurrentgemma-2b",
+                                  "whisper-medium"])
+def test_serving_forward_equals_forward_bit_for_bit(arch):
+    """The prefill trunk (the serving modes: each FFN output handed on to
+    the next norm as its delta, across segment ends and into the final
+    norm) equals the forward trunk (the adds on their own) bit for bit on
+    the CPU, where the norm's plain version adds the delta as the chain
+    does."""
+    cfg = get_config(arch).reduced()
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(2, 11)))
+    kw = {}
+    if cfg.is_encoder_decoder:
+        kw["enc_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    h_fwd = lm._forward(cfg, params, toks, mode="forward", **kw)[0]
+    h_srv = lm._forward(cfg, params, toks, mode="prefill", max_len=16, **kw)[0]
+    assert _bits_equal(h_srv, h_fwd)
+
+
+@pytest.mark.parametrize("mode", ["forward", "train", "prefill"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-2b"])
+def test_only_the_serving_modes_hand_the_ffn_residual_on(arch, mode):
+    """A segment run in prefill returns its last FFN output still to add
+    (x + it equals the forward run's x bit for bit, on the CPU); train mode
+    and the forward reference add it themselves and return none."""
+    cfg = get_config(arch).reduced()
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    seg, sp = cfg.segments[0], params["segments"][0]
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 7, cfg.d_model))
+                         .astype(np.float32)).to(params["embed"].dtype)
+    pos = torch.arange(7)[None].expand(2, 7)
+    want, none, _ = lm._run_segment(cfg, seg, sp, x, mode="forward", positions=pos)
+    assert none is None
+    got, pending, _ = lm._run_segment(cfg, seg, sp, x, mode=mode, positions=pos, max_len=8)
+    assert (pending is None) == (mode != "prefill")
+    assert _bits_equal(got if pending is None else got + pending, want)
 
 
 def _serve(eng, prompts, max_new=(3, 6, 4, 5)):
@@ -420,7 +487,10 @@ def _within_norm_tol(got, want, layernorm=False) -> bool:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_norm_kernel_against_plain_on_card(cuda, dtype, kind, residual):
     rng = np.random.default_rng(10)
-    for rows, d in ((8, 2048), (1024, 2048), (7, 5120), (3, 8192), (1, 64)):
+    # the kernel's layouts: lane groups (64, 128, 512), one warp (2048), a
+    # few warps a row (2560 and up; 32768 f32 at 16 vectors a lane)
+    for rows, d in ((8, 2048), (1024, 2048), (7, 5120), (3, 8192), (1, 64), (13, 128), (5, 512),
+                    (4, 2560), (2, 32768)):
         x, delta = (_t(rng.standard_normal((rows, d)), dtype).to(cuda) for _ in range(2))
         scale = _t(1 + 0.1 * rng.standard_normal(d), dtype).to(cuda)
         bias = _t(0.1 * rng.standard_normal(d), dtype).to(cuda) if kind == "layernorm" else None
@@ -444,14 +514,43 @@ def test_norm_kernel_against_plain_on_card(cuda, dtype, kind, residual):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [64, 96, 128, 160, 256])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_row_across_layouts_on_card(cuda, dtype, kind):
+    """The kernel is not batch-invariant: at d 2048 bf16 a launch of 8 rows
+    (a decode step) gives a row 256 lanes, one of 504 rows 64 and one of
+    512 or 1024 rows 32 (f32: 512 lanes, then 64), so the row's sum runs in
+    another order.
+    The same rows' y stay within the norms' tolerance of the decode
+    launch's (1 bf16 ulp, the LayerNorm cancel bound, rtol 1e-6 in f32),
+    and their residual sum is the same bits."""
+    rng = np.random.default_rng(12)
+    d = 2048
+    x, delta = (_t(rng.standard_normal((1024, d)), dtype).to(cuda) for _ in range(2))
+    scale = _t(1 + 0.1 * rng.standard_normal(d), dtype).to(cuda)
+    bias = _t(0.1 * rng.standard_normal(d), dtype).to(cuda) if kind == "layernorm" else None
+    res, y = norm(x[:8], scale, bias, kind=kind, eps=1e-6, delta=delta[:8])
+    for rows in (504, 512, 1024):
+        got = norm(x[:rows], scale, bias, kind=kind, eps=1e-6, delta=delta[:rows])
+        assert _bits_equal(got[0][:8], res)
+        assert _within_norm_tol(got[1][:8], y, kind == "layernorm"), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 96, 100, 128, 160, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_qk_rope_kernel_against_plain_on_card(cuda, dtype, dh):
+    """Every d_head of the zoo, and 100, whose halves are no whole number
+    of 16-byte vectors (the kernel's scalar accesses, which heads one
+    element off a 16-byte boundary take too: S = 5)."""
     rng = np.random.default_rng(11)
     B, H, KV, rows = 3, 6, 2, 40
-    for S in (1, 37):
-        q = _t(rng.standard_normal((B, S, H, dh)), dtype).to(cuda)
-        k = _t(rng.standard_normal((B, S, KV, dh)), dtype).to(cuda)
+    for S in (1, 37, 5):
+        def heads(n):
+            t = _t(rng.standard_normal(B * S * n * dh + 1), dtype).to(cuda)
+            return t[int(S == 5):][:B * S * n * dh].view(B, S, n, dh)
+
+        q, k = heads(H), heads(KV)
         qs, ks = (_t(1 + 0.1 * rng.standard_normal(dh), dtype).to(cuda) for _ in range(2))
         pos = torch.arange(4090, 4090 + S, device=cuda)[None].expand(B, S)  # int64, stride 0
         # RoPE alone: bit for bit
