@@ -13,10 +13,7 @@
   ``FaultPlan``: per-request timelines and state equal the JAX package's.
 - The launcher in shard mode with injected faults, on the CPU.
 """
-import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,7 +43,8 @@ from repro_torch.retrieval import distributed as port_dist
 from repro_torch.server import Server
 from repro_torch.serving.faults import FaultPlan
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+from _support import run
+
 F32 = dict(rtol=1e-4, atol=1e-5)
 NAMES = ["one-shot", "hyde", "recomp", "multistep", "irg"]
 
@@ -214,19 +212,11 @@ def test_sharded_search_4_gloo_ranks_matches_jax_reference(tmp_path):
     slab[4], valid[4] = slab[0], valid[0]
     q[0] = slab[0, 3] + 1e-3
     np.savez(tmp_path / "in.npz", q=q, slab=slab, valid=valid, k=k)
-    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r), str(world),
-                               str(tmp_path / "store"), str(tmp_path / "in.npz"),
-                               str(tmp_path / f"out{r}.npz")],
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in range(world)]
-    try:
-        logs = [p.communicate(timeout=120)[0].decode() for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-3000:]}"
+    ranks = run(*([sys.executable, "-c", _RANK, str(r), str(world), str(tmp_path / "store"),
+                   str(tmp_path / "in.npz"), str(tmp_path / f"out{r}.npz")]
+                  for r in range(world)), timeout=120)
+    for r, p in enumerate(ranks):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{(p.stdout + p.stderr)[-3000:]}"
     outs = [np.load(tmp_path / f"out{r}.npz") for r in range(world)]
     for o in outs[1:]:  # replicated on every rank
         np.testing.assert_array_equal(o["d"], outs[0]["d"])

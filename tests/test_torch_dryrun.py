@@ -17,10 +17,7 @@
 """
 import json
 import math
-import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,8 +35,7 @@ from repro_torch.configs import SHAPES_BY_NAME, get_config  # noqa: E402
 from repro_torch.launch import specs as pspecs  # noqa: E402
 from repro_torch.training.tree import leaves_with_paths  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
-SRC = ROOT / "src"
+from _support import run  # noqa: E402
 
 
 def _jax_leaves(tree) -> dict:
@@ -137,9 +133,7 @@ print(json.dumps(out))
 
 
 def test_cost_mode_counts_per_device():
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    p = subprocess.run([sys.executable, "-c", _FLOPS], capture_output=True, text=True, env=env,
-                       timeout=300)
+    [p] = run([sys.executable, "-c", _FLOPS])
     assert p.returncode == 0, p.stderr[-3000:]
     out = json.loads(p.stdout.strip().splitlines()[-1])
     flops, shape, counts = out["local"]
@@ -180,11 +174,9 @@ def _hand_argument_bytes(arch: str, shape_name: str) -> int:
 
 def test_run_cell_decode_32k_matches_hand_reckoning(tmp_path):
     out = tmp_path / "rec.json"
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-1.7b",
-                        "--shape", "decode_32k", "--mesh", "single", "--device-type", "cpu",
-                        "--out", str(out), "--quiet"], capture_output=True, text=True, env=env,
-                       timeout=600)
+    [p] = run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-1.7b",
+               "--shape", "decode_32k", "--mesh", "single", "--device-type", "cpu",
+               "--out", str(out), "--quiet"])
     assert p.returncode == 0, p.stderr[-3000:]
     rec = json.loads(out.read_text())[0]
     assert "error" not in rec, rec.get("traceback")
@@ -251,9 +243,7 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def zoo_traces():
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    p = subprocess.run([sys.executable, "-c", _ZOO], capture_output=True, text=True, env=env,
-                       timeout=900)
+    [p] = run([sys.executable, "-c", _ZOO])
     assert p.returncode == 0, p.stderr[-3000:]
     return json.loads(p.stdout.strip().splitlines()[-1])
 

@@ -16,6 +16,8 @@ from repro_torch.examples import multi_workflow_concurrent as port_multi
 from repro_torch.examples import quickstart as port_quick
 from repro_torch.retrieval.ivf import IVFIndex as PortIVF
 
+from _support import run
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -77,7 +79,6 @@ def test_example_refuses_cuda_without_a_card(name, monkeypatch):
 def test_new_modules_run_with_jax_and_repro_blocked(tmp_path):
     """The examples, the sharding rules, the dry-run and its scripts import
     and run with ``jax`` and ``repro`` blocked."""
-    import subprocess
     import sys
 
     code = (
@@ -104,9 +105,7 @@ def test_new_modules_run_with_jax_and_repro_blocked(tmp_path):
         "               for k in sys.modules if sys.modules[k] is not None)\n"
         "print('ISOLATED-OK')\n"
     )
-    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
-                       text=True, timeout=300,
-                       env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
-                            "HOME": str(tmp_path)})
+    [r] = run([sys.executable, "-c", code], cwd=tmp_path,
+              env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
     assert r.returncode == 0, r.stderr[-3000:]
     assert "ISOLATED-OK" in r.stdout

@@ -27,9 +27,7 @@ On the card the kernels are held to their plain versions bit for bit
 ulp (the norms; a LayerNorm output that cancels within 2^-16 absolute).
 """
 import dataclasses
-import os
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -46,6 +44,8 @@ from repro_torch.kernels.qk_rope import ops as qk_ops
 from repro_torch.models import lm
 from repro_torch.serving.engine import GenerationEngine
 from repro_torch.training.tree import leaves
+
+from _support import run
 
 try:  # the parity tests need the JAX package; the card's tests (-m cuda) do not
     import jax
@@ -295,9 +295,7 @@ def test_dtensor_run_never_calls_the_ops(tmp_path):
     paths run the plain chains, so none of the three ops is called, while
     decode attention runs on each rank's block.  (MoE's groups on the mesh
     run in ``tests/test_torch_sharding.py``, on four ranks.)"""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    p = subprocess.run([sys.executable, "-c", _DTENSOR_RUN, str(tmp_path / "store")], env=env,
-                       capture_output=True, text=True, timeout=300)
+    [p] = run([sys.executable, "-c", _DTENSOR_RUN, str(tmp_path / "store")])
     assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
     line = next(ln for ln in p.stdout.splitlines() if ln.startswith("calls"))
     assert line.startswith("calls [0, 0, 0]") and int(line.split()[-1]) > 0, line

@@ -3,13 +3,14 @@ verbatim copies equal their sources, and its entry points never fall back
 to the CPU unasked."""
 import ast
 import re
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from _support import run
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -162,9 +163,8 @@ def test_port_runs_with_jax_and_repro_blocked(tmp_path):
         "               for k in sys.modules if sys.modules[k] is not None)\n"
         "print('ISOLATED-OK')\n"
     )
-    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
-                       text=True, timeout=300, env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
-                                                   "HOME": str(tmp_path)})
+    [r] = run([sys.executable, "-c", code], cwd=tmp_path,
+              env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
     assert r.returncode == 0, r.stderr[-3000:]
     assert "ISOLATED-OK" in r.stdout
 

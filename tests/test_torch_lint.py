@@ -3,9 +3,7 @@
 ``repro_torch/...``), the port scans clean, and a violation planted in a
 copy of a port module is found exactly once."""
 import json
-import os
 import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -14,6 +12,8 @@ import pytest
 from repro_torch.analysis.lint import run_lint
 from repro_torch.analysis.lint.policy import DEFAULT_POLICY
 from repro_torch.core import stages
+
+from _support import run
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -80,9 +80,8 @@ def test_planted_violation_found_once(tmp_path, rel, extra, rule):
 
 
 def _cli(*args):
-    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    return subprocess.run([sys.executable, "-m", "repro_torch.analysis.lint", *args],
-                          capture_output=True, text=True, env=env, cwd=SRC.parent, timeout=120)
+    return run([sys.executable, "-m", "repro_torch.analysis.lint", *args], timeout=120,
+               cwd=SRC.parent)[0]
 
 
 def test_cli_exits_zero_on_the_port():

@@ -33,11 +33,8 @@ model's mesh paths) against the JAX package, on the CPU.
     with another capacity.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -64,8 +61,7 @@ from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.launch import specs as pspecs  # noqa: E402
 from repro_torch.training.tree import leaves_with_paths  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
-SRC = ROOT / "src"
+from _support import run  # noqa: E402
 
 
 class FakeMesh:
@@ -366,25 +362,20 @@ def mesh_run(tmp_path_factory):
     cases = _block_cases(rng)
     with open(tmp / "specs.pkl", "wb") as f:
         pickle.dump({k: (a.shape, spec) for k, (a, spec) in cases.items()}, f)
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    subprocess.run([sys.executable, "-c", _JAX_BLOCKS, str(tmp / "specs.pkl"),
-                    str(tmp / "jax_blocks.pkl")], check=True, env=env, timeout=300)
-    with open(tmp / "jax_blocks.pkl", "rb") as f:
-        jax_blocks = pickle.load(f)
     data = {"blocks": cases, "qwen_params": np_params, "batch": batch, "opt": opt,
             "train_B": TRAIN_B, "train_S": TRAIN_S, "prompt": prompt, "max_len": MAX_LEN,
             "steps": STEPS, "moe_params": jax.tree.map(np.asarray, moe_p), "moe_x": x}
     with open(tmp / "data.pkl", "wb") as f:
         pickle.dump(data, f)
-    store = tmp / "store"
-    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r), str(WORLD), str(store),
-                               str(tmp / "data.pkl"), str(tmp / f"r{r}.pkl")],
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-             for r in range(WORLD)]
-    logs = [p.communicate(timeout=600)[0] for p in procs]
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
+    # the JAX device blocks and the port's ranks, side by side
+    procs = run([sys.executable, "-c", _JAX_BLOCKS, str(tmp / "specs.pkl"),
+                 str(tmp / "jax_blocks.pkl")],
+                *([sys.executable, "-c", _RANK, str(r), str(WORLD), str(tmp / "store"),
+                   str(tmp / "data.pkl"), str(tmp / f"r{r}.pkl")] for r in range(WORLD)))
+    for p in procs:
+        assert p.returncode == 0, (p.stdout + p.stderr)[-4000:]
+    with open(tmp / "jax_blocks.pkl", "rb") as f:
+        jax_blocks = pickle.load(f)
     ranks = []
     for r in range(WORLD):
         with open(tmp / f"r{r}.pkl", "rb") as f:

@@ -21,9 +21,7 @@
   over 2 gloo processes equal to the JAX 2-pod ``shard_map`` result.
 """
 import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -48,7 +46,8 @@ from repro_torch.training.data import SyntheticTokenStream, to_device  # noqa: E
 from repro_torch.training.train_step import make_train_step  # noqa: E402
 from repro_torch.training.tree import leaves_with_paths  # noqa: E402
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+from _support import SRC, run  # noqa: E402
+
 OPT = dict(lr=3e-3, warmup_steps=2, total_steps=5)
 
 
@@ -359,21 +358,13 @@ def test_compressed_psum_over_2_gloo_ranks_matches_jax_2pod(tmp_path):
     rng = np.random.default_rng(2)
     x = (rng.standard_normal((2, 515)) * 0.02).astype(np.float32)  # as test_compression
     np.save(tmp_path / "x.npy", x)
-    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1", "XLA_FLAGS": ""}
-    procs = [subprocess.Popen([sys.executable, "-c", _JAX_2POD, str(SRC), str(tmp_path / "x.npy"),
-                               str(tmp_path / "jax.npy")], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)]
-    procs += [subprocess.Popen([sys.executable, "-c", _PORT_RANK, str(r), str(tmp_path / "store"),
-                                str(tmp_path / "x.npy"), str(tmp_path / f"out{r}.npy")], env=env,
-                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-              for r in range(2)]
-    try:
-        logs = [p.communicate(timeout=120)[0].decode() for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-3000:]
+    procs = run([sys.executable, "-c", _JAX_2POD, SRC, str(tmp_path / "x.npy"),
+                 str(tmp_path / "jax.npy")],
+                *([sys.executable, "-c", _PORT_RANK, str(r), str(tmp_path / "store"),
+                   str(tmp_path / "x.npy"), str(tmp_path / f"out{r}.npy")] for r in range(2)),
+                timeout=120, env={**os.environ, "XLA_FLAGS": ""})
+    for p in procs:
+        assert p.returncode == 0, (p.stdout + p.stderr)[-3000:]
     want = np.load(tmp_path / "jax.npy")
     for r in range(2):
         np.testing.assert_array_equal(np.load(tmp_path / f"out{r}.npy"), want)
