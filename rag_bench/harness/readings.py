@@ -29,7 +29,10 @@ class Context:
         s = self.stack
         self.step_lens, self.scan_calls = s.step_lens, s.scan_calls
         mc = s.mc
-        self.attn_layers = sum(g.repeat for g in mc.segments if g.mixer in ("attn", "local_attn"))
+        # each decode_attention layer's window (a ring's rows; 0: the whole cache)
+        self.attn_windows = [mc.local_window if g.mixer == "local_attn" else 0
+                             for g in mc.segments if g.mixer in ("attn", "local_attn")
+                             for _ in range(g.repeat)]
         self.attn_shape = (mc.n_kv_heads, mc.d_head, mc.n_heads, s.engine_batch)
 
     def _in(self, a: float) -> bool:

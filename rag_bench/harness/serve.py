@@ -27,6 +27,8 @@ import time
 
 import numpy as np
 
+from rag_bench import families
+
 from . import traffic as tr
 from .weights import make_params
 
@@ -73,14 +75,14 @@ class SeqRecord:
 
 def model_config(torch, cfg_file: dict, tiny: bool):
     """The port's ModelConfig for a configuration file, held to the file's
-    widths (at the tiny size the port's own reduced widths, in bf16); MoE
-    capacity set so that no token is dropped (the published routing has no
-    capacity)."""
+    widths (at the tiny size the port's own reduced widths, in bf16, with
+    the family's ``TINY`` overrides); MoE capacity set so that no token is
+    dropped (the published routing has no capacity)."""
     from repro_torch.configs import get_config
 
     mc = get_config(cfg_file["program_arch"])
     if tiny:
-        mc = mc.reduced(dtype="bfloat16", **({"n_kv_heads": 2} if not mc.kv_lora_rank else {}))
+        mc = mc.reduced(dtype="bfloat16", **families.load(cfg_file["model_type"]).TINY)
     else:
         check_widths(cfg_file, mc)
     if mc.n_experts:
@@ -94,39 +96,22 @@ def file_view(cfg_file: dict, mc) -> dict:
     out = dict(cfg_file)
     out.update(hidden_size=mc.d_model, num_hidden_layers=mc.n_layers,
                num_attention_heads=mc.n_heads, vocab_size=mc.vocab_size)
-    if cfg_file["model_type"] == "qwen3":
-        out.update(num_key_value_heads=mc.n_kv_heads, head_dim=mc.d_head,
-                   intermediate_size=mc.d_ff)
-    else:
-        out.update(kv_lora_rank=mc.kv_lora_rank, qk_rope_head_dim=mc.rope_head_dim,
-                   qk_nope_head_dim=mc.nope_head_dim, v_head_dim=mc.v_head_dim,
-                   intermediate_size=mc.d_ff, moe_intermediate_size=mc.moe_d_ff,
-                   n_routed_experts=mc.n_experts, num_experts_per_tok=mc.moe_top_k,
-                   n_shared_experts=mc.n_shared_experts,
-                   first_k_dense_replace=mc.segments[0].repeat)
+    out.update(families.load(cfg_file["model_type"]).tiny_view(mc))
     return out
 
 
 def check_widths(f: dict, mc) -> None:
-    """Raise where the port's config departs from the file's widths."""
+    """Raise where the port's config departs from the file's widths, as the
+    family module reads them (``port``), or its layers from the family's
+    (mixer, ffn, repeat) runs."""
     want = dict(d_model=f["hidden_size"], n_layers=f["num_hidden_layers"],
                 n_heads=f["num_attention_heads"], vocab_size=f["vocab_size"],
                 rope_theta=float(f["rope_theta"]), norm_eps=f["rms_norm_eps"],
                 tie_embeddings=f["tie_word_embeddings"], act=f["hidden_act"])
-    if f["model_type"] == "qwen3":
-        want.update(n_kv_heads=f["num_key_value_heads"], d_head=f["head_dim"],
-                    d_ff=f["intermediate_size"], qk_norm=True, qkv_bias=f["attention_bias"])
-    else:
-        want.update(kv_lora_rank=f["kv_lora_rank"], q_lora_rank=f["q_lora_rank"] or 0,
-                    rope_head_dim=f["qk_rope_head_dim"], nope_head_dim=f["qk_nope_head_dim"],
-                    v_head_dim=f["v_head_dim"], d_ff=f["intermediate_size"],
-                    moe_d_ff=f["moe_intermediate_size"], n_experts=f["n_routed_experts"],
-                    moe_top_k=f["num_experts_per_tok"], n_shared_experts=f["n_shared_experts"])
-        if mc.segments[0].repeat != f["first_k_dense_replace"] or mc.segments[0].ffn != "swiglu":
-            raise ValueError("the port's dense layers differ from first_k_dense_replace")
-        if (f.get("rope_scaling") or {}).get("factor", 1) != 1:
-            raise ValueError("the port has no YaRN: rope_scaling runs only at factor 1")
-    bad = {k: (getattr(mc, k), v) for k, v in want.items() if getattr(mc, k) != v}
+    want.update(families.load(f["model_type"]).port(f))
+    have = {k: getattr(mc, k) for k in want}
+    have["segments"] = tuple((g.mixer, g.ffn, g.repeat) for g in mc.segments)
+    bad = {k: (have[k], v) for k, v in want.items() if have[k] != v}
     if bad:
         raise ValueError(f"the port's {mc.name} departs from the configuration file: {bad}")
 
@@ -199,7 +184,8 @@ class Stack:
         self.mc = model_config(torch, cfg_file, tiny)
         self.cfg_view = file_view(cfg_file, self.mc)
         t0 = time.monotonic()
-        self.params = make_params(torch, lm.init_params(self.mc, device="meta"), seed, dev)
+        self.params = make_params(torch, lm.init_params(self.mc, device="meta"), seed, dev,
+                                  families.load(cfg_file["model_type"]).WEIGHTS)
         self.sync()
         log(f"weights: {sum(1 for _ in _leaf_iter(self.params))} leaves made on {dev} "
             f"in {time.monotonic() - t0:.2f}s")

@@ -5,15 +5,18 @@ its leaves' names, shapes and dtypes, and draws nothing) is filled from one
 ``torch.Generator`` on the card: one flat buffer per dtype, one
 ``normal_`` call each, every leaf a view into it, then one in-place scale a
 leaf.  Matrices are normal / sqrt(fan_in) (their second-to-last dim), the
-embedding normal * 0.02, norm scales 1 + 0.1 * normal, biases 0.  The same
-tensors go to the program and to the reference, which reads them by name
-and derives nothing from the program.
+embedding normal * 0.02, norm scales 1 + 0.1 * normal, biases 0; a leaf
+that is none of these and no matrix takes the rule its family module names
+for it (``families/<model_type>.py``'s ``WEIGHTS``), or is refused.  The
+same tensors go to the program and to the reference, which reads them by
+name and derives nothing from the program.
 """
 from __future__ import annotations
 
 import math
 
 NORM_KEYS = ("scale", "q_norm", "k_norm", "kv_norm")
+RULES = ("norm", "zero", "small")
 CHUNK = 1 << 30
 
 
@@ -34,9 +37,33 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
-def make_params(torch, meta_tree, seed: int, device):
-    """The program's parameter tree, filled from ``seed`` on ``device``."""
+def _rule(path, shape, rules: dict) -> str:
+    """How leaf ``path`` of ``shape`` is scaled: "norm", "zero", "small" or
+    "matrix".  Leaves under ``segments`` are stacked over their layers, so a
+    layer's leaf has one dim fewer."""
+    name = path[-1]
+    if name in NORM_KEYS:
+        return "norm"
+    if name.startswith("b") and len(name) <= 2:
+        return "zero"  # biases (bq, bk, bv, b1, b2)
+    if name == "embed":
+        return "small"
+    if name in rules:
+        if rules[name] not in RULES:
+            raise ValueError(f"leaf {path}: rule {rules[name]!r} is none of {RULES}")
+        return rules[name]
+    if len(shape) - (path[0] == "segments") < 2:
+        raise ValueError(f"leaf {path} of shape {tuple(shape)} is no matrix, norm or bias, "
+                         "and its family module names no rule for it")
+    return "matrix"
+
+
+def make_params(torch, meta_tree, seed: int, device, rules: dict | None = None):
+    """The program's parameter tree, filled from ``seed`` on ``device``;
+    ``rules``: {leaf name: "norm" | "zero" | "small"} for the family's leaves
+    that the rules above do not cover."""
     leaves = list(_leaves(meta_tree))
+    rule_of = {path: _rule(path, t.shape, rules or {}) for path, t in leaves}  # before any draw
     by_dtype: dict = {}
     for path, t in leaves:
         by_dtype.setdefault(t.dtype, []).append((path, t))
@@ -53,12 +80,12 @@ def make_params(torch, meta_tree, seed: int, device):
         for path, t in group:
             leaf = flat[at: at + t.numel()].view(t.shape)
             at += t.numel()
-            name = path[-1]
-            if name in NORM_KEYS:
+            rule = rule_of[path]
+            if rule == "norm":
                 leaf.mul_(0.1).add_(1.0)
-            elif name.startswith("b") and len(name) <= 2:
-                leaf.zero_()  # biases (bq, bk, bv, b1, b2)
-            elif name == "embed":
+            elif rule == "zero":
+                leaf.zero_()
+            elif rule == "small":
                 leaf.mul_(0.02)
             else:
                 leaf.mul_(1.0 / math.sqrt(t.shape[-2]))

@@ -27,15 +27,61 @@ def test_top_level_keys_and_command():
     assert runs * (BENCH["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
 
 
+CHIPS = re.compile(r"\b(\d+) (?:chips|cards|GPUs) share (?:each|every|a) layer\b")
+
+
+def share_key(key: str) -> bool:
+    """The key that counts the routed experts (not those a token takes, not
+    the shared ones), or the vocabulary: what a chip's share may cut."""
+    return key == "vocab_size" or ("experts" in key and not any(
+        s in key for s in ("per_tok", "shared", "group")))
+
+
+def reduced_problems(f: dict) -> list:
+    """What a configuration file's ``reduced`` may not list.  No width (a
+    key ending in _dim, _rank or _size) and no count of experts, except the
+    chip's share of a stated deployment, where each layer is divided over
+    several chips and this one holds its part: the routed experts held on
+    this chip, or a sliced ``vocab_size``, each with
+    its published value under ``published`` and a ``deployment`` that says
+    how many chips share a layer ("8 chips share each layer"), this chip
+    holding its share of them, rounded up."""
+    out = []
+    for key in f["reduced"]:
+        if share_key(key):
+            chips = CHIPS.search(f.get("deployment", ""))
+            pub = f.get("published", {}).get(key)
+            if chips is None or not isinstance(pub, int):
+                out.append(f"{key}: no published count, or no chips sharing a layer")
+            elif f[key] != -(-pub // int(chips[1])):
+                out.append(f"{key}: {f[key]} is not the share of {pub} over {chips[1]} chips")
+        elif key.endswith(("_dim", "_rank", "_size")) or "experts" in key:
+            out.append(f"{key}: a width or a count of experts")
+    return out
+
+
 @pytest.mark.parametrize("cfg", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_found_by_name(cfg):
     f = json.loads((ROOT / cfg["file"]).read_text())
     assert cfg["file"] == f"rag_bench/configs/{cfg['name']}.json"
     assert f["source"] == cfg["source"]
     assert f["reduced"] == cfg["reduced"]
-    assert (ROOT / "rag_bench" / "reference" / f"{f['model_type']}.py").is_file()
-    for key in cfg["reduced"]:
-        assert not key.endswith(("_dim", "_rank", "_size")) and "experts" not in key
+    for d in ("reference", "families"):
+        assert (ROOT / "rag_bench" / d / f"{f['model_type']}.py").is_file()
+    assert reduced_problems(f) == []
+
+
+def test_only_the_chips_share_may_cut_experts_or_the_vocabulary():
+    deploy = "one H100 of a node where 4 chips share each layer"
+    f = {"num_experts": 32, "vocab_size": 50048, "num_experts_per_tok": 8, "deployment": deploy,
+         "published": {"num_experts": 128, "vocab_size": 200192},
+         "reduced": ["num_experts", "vocab_size", "rope_scaling"]}
+    assert reduced_problems(f) == []
+    for bad in (dict(f, num_experts=64), dict(f, deployment="one H100"),
+                dict(f, published={"vocab_size": 200192}),
+                dict(f, reduced=["num_experts_per_tok"]), dict(f, reduced=["n_shared_experts"]),
+                dict(f, reduced=["moe_intermediate_size"]), dict(f, reduced=["head_dim"])):
+        assert reduced_problems(bad), bad
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda c: c["name"])

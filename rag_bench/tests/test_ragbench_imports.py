@@ -1,5 +1,6 @@
 """Nothing under rag_bench imports jax, jaxlib, flax or the JAX package
-``repro``, and the reference imports nothing of the port either.  Names
+``repro``, and the reference and the family modules import nothing of the
+port either.  Names
 are compared whole, by the part before the first dot: ``repro_torch`` is
 not ``repro``."""
 from __future__ import annotations
@@ -31,7 +32,7 @@ def top_level_imports(path) -> set:
 def test_no_file_imports_jax_or_the_jax_package(path):
     got = top_level_imports(path)
     assert not got & FORBIDDEN, f"{path} imports {got & FORBIDDEN}"
-    if path.parent.name == "reference":
+    if path.parent.name in ("reference", "families"):
         assert "repro_torch" not in got
 
 
@@ -49,7 +50,8 @@ def test_a_run_loads_none_of_them():
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'repro'): sys.modules[m] = None\n"
-        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}, {str(BENCH / 'tests')!r}]\n"
+        # the benchmark's conftest ahead of the repository's own at the root
+        f"sys.path[:0] = [{str(BENCH / 'tests')!r}, {str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         "import torch; torch.set_num_threads(2)\n"
         "from conftest import tiny_run\n"
         "r = tiny_run('qwen3-rag-qa-online', seconds=2.0)\n"
@@ -64,11 +66,16 @@ def test_a_run_loads_none_of_them():
 
 
 def test_the_reference_runs_without_the_port():
+    """Every module under ``reference/`` and ``families/`` imports with jax,
+    the JAX package and the port made unimportable."""
+    mods = [f"rag_bench.{p.parent.name}.{p.stem}" for d in ("reference", "families")
+            for p in sorted((BENCH / d).glob("*.py")) if p.stem != "__init__"]
+    assert {"rag_bench.reference.qwen3", "rag_bench.families.deepseek_v2"} <= set(mods)
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "for m in ('jax', 'repro', 'repro_torch'): sys.modules[m] = None\n"
         f"sys.path[:0] = [{str(ROOT)!r}]\n"
-        "import rag_bench.reference.qwen3, rag_bench.reference.deepseek_v2, rag_bench.reference.ivf\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
         "print('clean')\n")
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
     assert p.returncode == 0 and "clean" in p.stdout, p.stderr[-3000:]

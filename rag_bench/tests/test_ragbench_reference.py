@@ -14,6 +14,9 @@ import torch
 from conftest import ROOT
 
 
+CONFIGS = sorted(p.stem for p in (ROOT / "rag_bench" / "configs").glob("*.json"))
+
+
 def tiny(config: str):
     from rag_bench.harness.serve import file_view, model_config
 
@@ -22,18 +25,19 @@ def tiny(config: str):
     return mc, file_view(f, mc)
 
 
-@pytest.mark.parametrize("config,module", [("qwen3-1.7b", "qwen3"),
-                                           ("deepseek-v2-lite-16b", "deepseek_v2")])
-def test_reference_logits_equal_the_ports_forward(config, module):
+@pytest.mark.parametrize("config", CONFIGS)
+def test_reference_logits_equal_the_ports_forward(config):
     import importlib
 
+    from rag_bench import families
     from rag_bench.harness.weights import make_params
     from rag_bench.reference.common import Precision
     from repro_torch.models import lm
 
     mc, view = tiny(config)
-    ref = importlib.import_module(f"rag_bench.reference.{module}")
-    params = make_params(torch, lm.init_params(mc, device="meta"), 2**33 + 7, torch.device("cpu"))
+    ref = importlib.import_module(f"rag_bench.reference.{view['model_type']}")
+    params = make_params(torch, lm.init_params(mc, device="meta"), 2**33 + 7, torch.device("cpu"),
+                         families.load(view["model_type"]).WEIGHTS)
     toks = torch.as_tensor(np.random.default_rng(0).integers(0, mc.vocab_size, 40))
     want = lm.forward(params, mc, toks[None])[0]
     got = ref.logits_at(params, view, toks, torch.arange(40), Precision("f32"))
